@@ -23,8 +23,7 @@ from antidote_tpu_torch.mat import store
 from antidote_tpu_torch.mat.synth import orset_batch
 
 #: the fields of a batch, in orset_append's argument order
-BATCH_FIELDS = ("key_idx", "lane_off", "elem_slot", "is_add", "dot_dc",
-                "dot_seq", "obs_vv", "op_dc", "op_ct", "op_ss")
+BATCH_FIELDS = store.SHARD_TYPES["set_aw"].fields
 
 
 def make_batch(rng, K: int, B: int, D: int, n_dcs: int, clock: np.ndarray,

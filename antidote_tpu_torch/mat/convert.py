@@ -1,25 +1,33 @@
 """Carry a shard's state across from numpy arrays (for example those of
-the JAX package's ``OrsetShardState``, read with ``np.asarray``)."""
+the JAX package's shard states, read with ``np.asarray``): the port's
+counterpart of loading weights."""
 
 from __future__ import annotations
+
+from collections.abc import Mapping
+from dataclasses import fields
 
 import numpy as np
 import torch
 
 from antidote_tpu_torch import resolve_device
-from antidote_tpu_torch.mat.store import OrsetShardState
 
 
-def state_from_numpy(dots, base_vc, has_base, ops, valid, n_lanes: int,
-                     device=None) -> OrsetShardState:
-    """The port's shard state holding the given arrays, with their
-    integer types kept, on ``device`` (None: the card, or raise)."""
+def state_from_numpy(cls, src, device=None):
+    """A ``cls`` shard state (one of mat/store.py's ``*ShardState``
+    classes) holding copies of ``src``'s arrays, their types kept, on
+    ``device`` (None: the card, or raise).  ``src`` maps the class's
+    field names to array-likes and ``n_lanes`` to an int; it may be a
+    mapping or any object with those attributes, such as the JAX
+    package's state of the same type."""
     dev = resolve_device(device)
-    # a copy: the port updates state in place, and must not write through
-    # to the caller's arrays
-    t = lambda a: torch.tensor(np.asarray(a), device=dev)  # noqa: E731
-    return OrsetShardState(
-        dots=t(dots), base_vc=t(base_vc),
-        has_base=t(np.asarray(has_base, dtype=bool)),
-        ops=t(ops), valid=t(np.asarray(valid, dtype=bool)),
-        n_lanes=int(n_lanes))
+    get = src.__getitem__ if isinstance(src, Mapping) else \
+        lambda name: getattr(src, name)
+    out = {}
+    for f in fields(cls):
+        v = get(f.name)
+        # a copy: the port updates state in place, and must not write
+        # through to the caller's arrays
+        out[f.name] = int(v) if f.name == "n_lanes" else \
+            torch.tensor(np.asarray(v), device=dev)
+    return cls(**out)

@@ -1,5 +1,7 @@
 """Synthetic committed-op streams for the superstep, the smoke run and the
-tests (a copy of antidote_tpu/mat/synth.py's ``orset_batch``, numpy only).
+tests (a copy of antidote_tpu/mat/synth.py's ``orset_batch``, numpy only,
+and :func:`type_fields`, which derives every other shard type's batch
+from it).
 
 Given the same ``default_rng`` seed it builds the same streams as the
 JAX package's generator, so the port and the reference can be driven
@@ -11,6 +13,11 @@ here.
 from __future__ import annotations
 
 import numpy as np
+
+#: bits of an LWW tiebreak below the actor rank (rank << TIE_SHIFT | seq)
+TIE_SHIFT = 20
+#: a remove-wins set row's kind (kernels.RW_ADD, RW_RMV, RW_RESET)
+_RW_ADD, _RW_RMV, _RW_RESET = 0, 1, 2
 
 
 def orset_batch(rng, K: int, B: int, D: int, n_dcs: int,
@@ -46,3 +53,47 @@ def orset_batch(rng, K: int, B: int, D: int, n_dcs: int,
         dot_seq=ct, obs_vv=obs, op_dc=dc.copy(), op_ct=ct.copy(), op_ss=ss,
         frontier=frontier,
     )
+
+
+def type_fields(type_name: str, s: dict) -> dict:
+    """The append fields of a ``type_name`` batch (its shard type's
+    ``fields`` in store.SHARD_TYPES, but ``lane_off``) derived from one
+    :func:`orset_batch` ``s``, as the
+    repository's benches and store tests derive them:
+
+    - register_mv: the batch as it is (value slot = element slot; every
+      op an assign minting its dot), as BASELINE config 3 drives it;
+    - counter_pn: increments of one, as BASELINE config 1;
+    - set_go: every op an add of its element;
+    - set_rw: adds and removes as the batch says, every eighth op that is
+      a remove made a reset (no dot, both observed VVs); a row carries
+      its observed VV on the plane(s) it cancels and zeros on the other;
+    - register_lww: timestamp = commit time, tiebreak = origin DC <<
+      ``TIE_SHIFT`` | commit time, value id = element slot."""
+    out = {k: s[k] for k in ("key_idx", "op_dc", "op_ct", "op_ss")}
+    B = len(s["key_idx"])
+    if type_name in ("set_aw", "register_mv"):
+        out.update((k, s[k]) for k in ("elem_slot", "is_add", "dot_dc",
+                                        "dot_seq", "obs_vv"))
+    elif type_name == "counter_pn":
+        out["delta"] = np.ones(B, dtype=np.int32)
+    elif type_name == "set_go":
+        out["elem_slot"] = s["elem_slot"]
+    elif type_name == "set_rw":
+        reset = ~s["is_add"] & (np.arange(B) % 8 == 7)
+        kind = np.where(s["is_add"], _RW_ADD,
+                        np.where(reset, _RW_RESET, _RW_RMV)).astype(np.int32)
+        obs = s["obs_vv"]
+        out.update(
+            elem_slot=s["elem_slot"], kind=kind,
+            dot_dc=np.where(reset, 0, s["dot_dc"]).astype(np.int32),
+            dot_seq=np.where(reset, 0, s["dot_seq"]).astype(np.int32),
+            obs_add=np.where((kind != _RW_ADD)[:, None], obs, 0),
+            obs_rmv=np.where((kind != _RW_RMV)[:, None], obs, 0))
+    elif type_name == "register_lww":
+        ct = s["op_ct"].astype(np.int64)
+        out.update(ts=ct, tie=(s["op_dc"].astype(np.int64) << TIE_SHIFT)
+                   | (ct & ((1 << TIE_SHIFT) - 1)), val=s["elem_slot"])
+    else:
+        raise ValueError(f"no shard type {type_name!r}")
+    return out

@@ -26,11 +26,34 @@ and nvcc.  Phases, each of which fails the run on any error or mismatch:
    kernel once a GC) and no other.  The two paths must leave the same
    shard, and their final presence must equal the plain read's;
 5. times: each kernel and its plain version with CUDA events at the
-   superstep's final state, beside the kernel's bound; the append; the
-   step and merges/s; peak device memory.
+   superstep's final state, beside the kernel's bound; the append (which
+   must not wait for the card): its time, the host's time in it and its
+   kernels' device time (torch.profiler); the step and merges/s; peak
+   device memory;
+6. every other shard type at its source's own shape (``TYPE_SHAPES``):
+   MV-register and LWW register (BASELINE config 3, 64 DCs), PN-counter
+   (BASELINE config 1), remove-wins and grow-only sets (the OR-Set
+   headline shape).  Each phase first runs the same seeded batches at
+   K = 4,096, B = 8,192 on the card and on the CPU (appends with
+   overflow, GCs, a purge with keys past the end, the full read and
+   ``read_keys``) and requires every output and the final state to be
+   equal.  Then at full width: 2 warm-up and 8 timed steps of append
+   with a GC on the source's cadence, then one more batch left in the
+   ring; the full read at its frontier equals the read after a GC
+   there, and ``read_keys`` of 1,024 sampled keys equals their rows of
+   the full read.  Every append and the purge run under
+   ``torch.cuda.set_sync_debug_mode("error")``: any wait for the card
+   fails the run;
+7. the packed ingest plane (mat/ingest.py) on an MV-register shard,
+   driven as BASELINE config 3's ingest sweep drives it (``INGEST``):
+   its rows (``ingest_rows``, the sweep's ``gen_rows``), 8,192 of them
+   in flushes of 8 and of 64 rows, a GC every 2 and every 8 flushes at
+   the flush's frontier, each flush packed on the host, uploaded and
+   appended inside the timed loop.  The same checks as phase 6, every
+   ``packed_append`` and the purge under the sync check.
 
-The line before the last carries the nvidia-smi reading, the one before
-it the ``kernels`` JSON object; the last line is
+The line before the last carries the nvidia-smi reading, the ones before
+it the ``kernels`` and ``types`` JSON objects; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
 """
@@ -39,14 +62,15 @@ import json
 import subprocess
 import sys
 import time
-from dataclasses import replace
+from contextlib import contextmanager, nullcontext
+from dataclasses import fields, replace
 
 import numpy as np
 import torch
 
 from antidote_tpu_torch import _cuda, entry
 from antidote_tpu_torch.mat import gpu_kernels as gk
-from antidote_tpu_torch.mat import store
+from antidote_tpu_torch.mat import ingest, store, synth
 
 # H100 SXM (NVIDIA's data sheet): HBM3 rate
 HBM_BYTES_PER_S = 3.35e12
@@ -57,8 +81,49 @@ SOURCE = "antidote_tpu_torch/csrc/orset_kernels.cu"
 PALLAS = "antidote_tpu/mat/pallas_kernels.py"
 
 
+#: the type phases' shapes, each its source's own (nothing is cut)
+TYPE_SHAPES = {
+    "counter_pn": dict(K=1_000_000, B=65_536, E=0, D=1, n_dcs=1,
+                       dtype=torch.int64, gc_every=1,
+                       source="benches/config1_counter.py:72-73"),
+    "register_mv": dict(K=262_144, B=32_768, E=4, D=64, n_dcs=64,
+                        dtype=torch.int32, gc_every=2,
+                        source="benches/config3_mvreg.py:217-218"),
+    "register_lww": dict(K=262_144, B=32_768, E=0, D=64, n_dcs=64,
+                         dtype=torch.int64, gc_every=2,
+                         source="BASELINE config 3 (LWW map, 64 DCs)"),
+    "set_rw": dict(K=1_000_000, B=65_536, E=8, D=8, n_dcs=3,
+                   dtype=torch.int32, gc_every=4, source="bench.py:62"),
+    "set_go": dict(K=1_000_000, B=65_536, E=8, D=8, n_dcs=3,
+                   dtype=torch.int32, gc_every=4, source="bench.py:62"),
+}
+#: the ingest phase: config 3's ingest sweep (``ingest_sweep``) on an
+#: MV-register shard; ``rows`` ops in flushes of C rows for each C in
+#: ``coalesce``, a GC every G flushes for each G in ``gc_every``
+INGEST = dict(K=65_536, rows=8_192, coalesce=(8, 64), gc_every=(2, 8),
+              E=4, D=64, n_per_op=512, dtype=torch.int32,
+              source="benches/config3_mvreg.py:87-198 (main: K=65,536, "
+                     "n_coalesced=8,192)")
+#: the MV-register plane's decoded-row tags (device_plane ``_row_cols``)
+MVREG_ROW_COLS = ("s", "s", "s", "s", "vv", "s", "s", "vv")
+TYPE_WARMUP, TYPE_STEPS = 2, 8
+SMALL_K, SMALL_B, SMALL_ROUNDS = 4_096, 8_192, 6
+SMALL_INGEST_K, SMALL_INGEST_ROWS = 512, 4_096
+N_SAMPLE = 1_024
+
+
 def fail(msg):
     raise RuntimeError(f"chip_smoke: {msg}")
+
+
+@contextmanager
+def no_host_wait():
+    """Any synchronisation of the host with the card inside raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def nvidia_smi():
@@ -258,27 +323,47 @@ def phase_superstep(device):
         fail("the auto and hybrid paths left different shards")
     by_path = {fused: run[2] for fused, run in runs.items()}
     del st_h, runs
-    summary["append_ms"] = append_ms(st, batches[-1])
+    (summary["append_ms"], summary["append_host_ms"],
+     summary["append_device_ms"]) = append_ms(st, batches[-1])
     return st, frontier, by_path, summary
 
 
 def append_ms(st, batch, n=12):
-    """Median device time of store.orset_append of ``batch`` on a copy of
-    ``st``, its bitmap restored before each call so every call places
-    the same ops."""
-    copy = replace(st, ops=st.ops.clone(), valid=st.valid.clone())
-    fields = [batch[k] for k in entry.BATCH_FIELDS]
-    times = []
-    for _ in range(n):
-        copy.valid.copy_(st.valid)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+    """Times of store.orset_append of ``batch``, each call on a copy of
+    ``st`` with its own copy of the lane bitmap, so every call places the
+    same ops: the medians of the call's time (CUDA events) and of the
+    host's time in the call, and the mean device time of its kernels
+    (torch.profiler; None where the profiler sees no device time), whose
+    largest parts it prints.  Each call must not wait for the card."""
+    copy = replace(st, ops=st.ops.clone())
+    args = [batch[k] for k in entry.BATCH_FIELDS]
+    times, host = [], []
+    for valid in [st.valid.clone() for _ in range(n)]:
+        start, end = events()
+        torch.cuda.synchronize()
         start.record()
-        store.orset_append(copy, *fields)
+        h0 = time.perf_counter()
+        with no_host_wait():
+            store.orset_append(replace(copy, valid=valid), *args)
+        host.append((time.perf_counter() - h0) * 1e3)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    return float(np.median(times[2:]))
+    valids = [st.valid.clone() for _ in range(n)]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for valid in valids:
+            store.orset_append(replace(copy, valid=valid), *args)
+        torch.cuda.synchronize()
+    ops = sorted(prof.key_averages(),
+                 key=lambda e: -e.self_device_time_total)
+    device_us = sum(e.self_device_time_total for e in ops)
+    top = [(e.key[:80], e.self_device_time_total / 1e3 / n) for e in ops[:6]
+           if e.self_device_time_total > 0]
+    print(f"[append] device ms a call by kernel: {top}", flush=True)
+    return (float(np.median(times[2:])), float(np.median(host[2:])),
+            device_us / 1e3 / n if device_us > 0 else None)
 
 
 def phase_times(st, frontier, by_path, errs):
@@ -334,6 +419,336 @@ def phase_times(st, frontier, by_path, errs):
     return rows, cuda_ms(lambda: gk.orset_read_hybrid(*args), 20)
 
 
+def events():
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def mean_ms(pairs):
+    return (sum(a.elapsed_time(b) for a, b in pairs) / len(pairs)
+            if pairs else None)
+
+
+def as_tuple(r):
+    return r if isinstance(r, tuple) else (r,)
+
+
+def same_or_fail(what, got, want):
+    """Every tensor of ``got`` equals its peer in ``want``: shape, dtype
+    and values, exactly."""
+    got, want = as_tuple(got), as_tuple(want)
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} outputs, expected {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        if (a.shape != b.shape or a.dtype != b.dtype
+                or not torch.equal(a.cpu(), b.cpu())):
+            fail(f"{what}: output {i} differs ({tuple(a.shape)} {a.dtype} "
+                 f"vs {tuple(b.shape)} {b.dtype})")
+
+
+def shard(name, shp, K, device):
+    t = store.SHARD_TYPES[name]
+    dims = (K, L, shp["E"], shp["D"]) if t.slots else (K, L, shp["D"])
+    return t.init(*dims, dtype=shp["dtype"], device=device)
+
+
+def type_flushes(name, shp, n, seed, K, B, device):
+    """``n`` seeded batches of shard type ``name``, put on ``device`` as
+    set-up (as the sources do).  Each is a flush: ``prep()`` (the host's
+    part of a step; nothing here), ``apply(st, x)`` (the store's append),
+    ``n`` ops, the GC's ``frontier`` and the reads' ``read_vc``."""
+    rng = np.random.default_rng(seed)
+    clock = np.zeros(shp["n_dcs"], dtype=np.int32)
+    t = store.SHARD_TYPES[name]
+    out = []
+    for _ in range(n):
+        s = synth.orset_batch(rng, K, B, shp["D"], shp["n_dcs"], clock,
+                              n_elems=shp["E"] or 8, obs_lag=2)
+        f = synth.type_fields(name, s)
+        f["lane_off"] = store.batch_lane_offsets(f["key_idx"])
+        args = [torch.from_numpy(np.ascontiguousarray(f[k])).to(device)
+                for k in t.fields]
+        fr = torch.from_numpy(s["frontier"]).to(device)
+        out.append(dict(prep=lambda: None, n=B, frontier=fr, read_vc=fr,
+                        apply=lambda st, x, a=args: t.append(st, *a)))
+    return out
+
+
+def ingest_rows(rng, n, K, D, E):
+    """``n`` decoded MV-register plane rows (key, slot, is_add, dot_dc,
+    dot_seq, obs pairs, op_dc, op_ct, ss pairs) as config 3's ingest
+    sweep makes them (its ``gen_rows``): per-DC commit stamps from 1,
+    every op an assign whose observed VC is the one pair (its DC, stamp
+    - 2) and whose snapshot VC is the one pair (its DC, stamp)."""
+    ct = np.zeros(D, dtype=np.int64)
+    out = []
+    for _ in range(n):
+        dc = int(rng.integers(0, D))
+        ct[dc] += 1
+        c = int(ct[dc])
+        out.append((int(rng.integers(0, K)), int(rng.integers(0, E)), 1, dc,
+                    c, [(dc, max(c - 2, 0))], dc, c, [(dc, c)]))
+    return out
+
+
+def ingest_flushes(rows, C, K, D, device):
+    """``rows`` in flushes of ``C``: each packed on the host and uploaded
+    inside its step (``prep``), then landed by ``packed_append``.  A
+    flush's ``frontier`` is the per-DC max commit stamp of its own rows
+    (the sweep's GC frontier), its ``read_vc`` that of every row so
+    far."""
+    perm = ingest.perm_for(store.orset_append)
+    seen = np.zeros(D, dtype=np.int64)
+    out = []
+    for i in range(0, len(rows), C):
+        chunk = rows[i:i + C]
+        fr = np.zeros(D, dtype=np.int64)
+        for r in chunk:
+            fr[r[6]] = max(fr[r[6]], r[7])
+        seen = np.maximum(seen, fr)
+        out.append(dict(
+            prep=lambda c=chunk: torch.from_numpy(ingest.pack_rows(
+                c, K, D, MVREG_ROW_COLS, perm)).to(device),
+            apply=ingest.packed_append, n=len(chunk),
+            frontier=torch.from_numpy(fr).to(device),
+            read_vc=torch.from_numpy(seen).to(device)))
+    return out
+
+
+def maybe_no_host_wait(device):
+    return no_host_wait() if torch.device(device).type == "cuda" \
+        else nullcontext()
+
+
+def small_run(t, st, flushes, gc_every):
+    """``flushes`` on ``st`` (a shard on the card or on the CPU), every
+    store call without waiting for the card, a GC on the cadence but
+    after the last flush, a purge (some keys past the end), then the
+    full read and ``read_keys`` at the last ``read_vc``.  Returns every
+    output and the final state's tensors, on the CPU."""
+    K = st.valid.shape[0] // L
+    device = st.valid.device
+    out = []
+    for i, f in enumerate(flushes):
+        x = f["prep"]()
+        with maybe_no_host_wait(device):
+            st, ov = f["apply"](st, x)
+        out.append(ov)
+        if i < len(flushes) - 1 and (i + 1) % gc_every == 0:
+            st = t.gc(st, f["frontier"])
+    with maybe_no_host_wait(device):
+        st = t.purge_keys(st, torch.arange(0, K + 64, 37, device=device))
+    vc = flushes[-1]["read_vc"]
+    out += as_tuple(t.read(st, vc))
+    out += as_tuple(t.read_keys(st, torch.arange(1, K, 13, device=device), vc))
+    out += [getattr(st, f.name) for f in fields(st) if f.name != "n_lanes"]
+    return [x.cpu() for x in out]
+
+
+def card_against_cpu(what, t, make_shard, make_flushes, gc_every, device):
+    """The same flushes through a shard on the card and one on the CPU
+    (``small_run``) give equal outputs; returns the seconds it took."""
+    t0 = time.perf_counter()
+    card, cpu = (small_run(t, make_shard(dev), make_flushes(dev), gc_every)
+                 for dev in (device, torch.device("cpu")))
+    same_or_fail(f"[{what}] card against CPU", tuple(card), tuple(cpu))
+    return time.perf_counter() - t0
+
+
+def timed_steps(t, box, flushes, gc_every):
+    """The timed steps of a phase on the card: each flush's host part,
+    its store call under the sync check, and after every
+    ``gc_every``-th flush a GC at its frontier; the loop ends in a
+    synchronise.  ``box`` is a one-item list holding the shard, which
+    the loop replaces there: no other frame keeps the shard it started
+    from, so peak memory counts one base table.  Returns the stats: the
+    loop's seconds, the host's seconds in ``prep`` and in the store
+    calls, the mean append and GC times (CUDA events), the ops dropped."""
+    st = box.pop()
+    dropped = torch.zeros((), dtype=torch.int64, device=st.valid.device)
+    ev_append, ev_gc = [], []
+    prep_s = call_s = 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, f in enumerate(flushes):
+        h0 = time.perf_counter()
+        x = f["prep"]()
+        h1 = time.perf_counter()
+        a = events()
+        a[0].record()
+        with no_host_wait():
+            st, ov = f["apply"](st, x)
+        call_s += time.perf_counter() - h1
+        prep_s += h1 - h0
+        a[1].record()
+        ev_append.append(a)
+        dropped += ov[:f["n"]].sum()
+        if (i + 1) % gc_every == 0:
+            g = events()
+            g[0].record()
+            st = t.gc(st, f["frontier"])
+            g[1].record()
+            ev_gc.append(g)
+    torch.cuda.synchronize()
+    box.append(st)
+    return dict(loop_s=time.perf_counter() - t0, prep_s=prep_s,
+                    call_s=call_s, append_ms=mean_ms(ev_append),
+                    gc_ms=mean_ms(ev_gc), dropped=int(dropped))
+
+
+def read_checks(what, t, st, vc, K):
+    """With ops in the ring, at ``vc``: ``read_keys`` of N_SAMPLE keys
+    equals their rows of the full read; a GC at ``vc`` folds every ring
+    op and leaves the full read as it was; a purge (two keys past the
+    end) under the sync check frees the sampled keys' lanes.  Returns
+    (the full read's ms, ops in the ring at the read)."""
+    device = st.valid.device
+    in_ring = int(st.valid.sum())
+    read_ms = cuda_ms(lambda: t.read(st, vc), 3, warmup=1)
+    full = t.read(st, vc)
+    sample = torch.from_numpy(np.sort(np.random.default_rng(5).choice(
+        K, N_SAMPLE, replace=False))).to(device)
+    same_or_fail(f"[{what}] read_keys of {N_SAMPLE} keys",
+                 t.read_keys(st, sample, vc),
+                 tuple(r[sample] for r in as_tuple(full)))
+    st = t.gc(st, vc)
+    if in_ring == 0 or bool(st.valid.any()):
+        fail(f"[{what}] the GC at the read VC did not fold the {in_ring} "
+             f"ring ops")
+    same_or_fail(f"[{what}] read across a GC", t.read(st, vc), full)
+    purge = torch.cat([sample[:64], torch.tensor([K, K + 7],
+                                                 device=device)])
+    with no_host_wait():
+        st = t.purge_keys(st, purge)
+    if bool(st.valid2d[sample[:64]].any()):
+        fail(f"[{what}] the purge left ring lanes live")
+    torch.cuda.synchronize()
+    return read_ms, in_ring
+
+
+def phase_type(name, device):
+    """Phase 6: one shard type against the CPU, then at full width with
+    its checks; returns its summary row."""
+    shp = TYPE_SHAPES[name]
+    t = store.SHARD_TYPES[name]
+    K, B, G = shp["K"], shp["B"], shp["gc_every"]
+    small_s = card_against_cpu(
+        name, t, lambda dev: shard(name, shp, SMALL_K, dev),
+        lambda dev: type_flushes(name, shp, SMALL_ROUNDS, 7, SMALL_K,
+                                 SMALL_B, dev), G, device)
+
+    fl = type_flushes(name, shp, TYPE_WARMUP + TYPE_STEPS + 1, 1, K, B,
+                      device)
+    st = shard(name, shp, K, device)
+    for f in fl[:TYPE_WARMUP]:
+        with no_host_wait():
+            st, _ = f["apply"](st, f["prep"]())
+        st = t.gc(st, f["frontier"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    box = [st]
+    del st
+    m = timed_steps(t, box, fl[TYPE_WARMUP:-1], G)
+    peak = torch.cuda.max_memory_allocated()
+    st = box.pop()
+    # one more batch stays in the ring for the read checks
+    tail = fl[-1]
+    with no_host_wait():
+        st, _ = tail["apply"](st, tail["prep"]())
+    read_ms, in_ring = read_checks(name, t, st, tail["read_vc"], K)
+
+    step_s = m["loop_s"] / TYPE_STEPS
+    row = {
+        "type": name, "source": shp["source"], "K": K, "B": B, "L": L,
+        "E": shp["E"] or None, "D": shp["D"], "n_dcs": shp["n_dcs"],
+        "dtype": str(shp["dtype"]).split(".")[-1], "gc_every": G,
+        "steps": TYPE_STEPS, "ring_bytes": nbytes(st.ops),
+        "step_ms": step_s * 1e3, "append_ms": m["append_ms"],
+        "append_host_ms": m["call_s"] * 1e3 / TYPE_STEPS,
+        "gc_ms": m["gc_ms"], "read_ms": read_ms,
+        "merges_per_s": (B * TYPE_STEPS - m["dropped"]) / m["loop_s"],
+        "dropped": m["dropped"], "max_memory_allocated": peak,
+        "checks": {"card_vs_cpu_s": small_s, "ops_in_ring_at_read":
+                   in_ring, "read_keys_sampled": N_SAMPLE},
+    }
+    print(f"[{name}] K={K} B={B} {row['dtype']} gc_every={G}: step "
+          f"{row['step_ms']:.3f} ms, append {row['append_ms']:.3f} ms "
+          f"(host {row['append_host_ms']:.3f} ms), GC "
+          f"{row['gc_ms']:.3f} ms, read {read_ms:.3f} ms, "
+          f"{row['merges_per_s']:.0f} merges/s, {m['dropped']} dropped, "
+          f"peak {peak} B; card = CPU, read = read after GC, read_keys = "
+          f"read rows, no host wait", flush=True)
+    del st, fl
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_ingest(device):
+    """Phase 7: the packed ingest plane on an MV-register shard, as
+    config 3's ingest sweep drives it: against the CPU on a small shard,
+    then each (flush size C, GC every G flushes) cell of the sweep at
+    full width, with phase 6's checks.  Returns a summary row a cell."""
+    shp = INGEST
+    t = store.SHARD_TYPES["register_mv"]
+    K, D, E = shp["K"], shp["D"], shp["E"]
+    small = ingest_rows(np.random.default_rng(7), SMALL_INGEST_ROWS,
+                        SMALL_INGEST_K, D, E)
+    small_s = card_against_cpu(
+        "ingest", t, lambda dev: shard("register_mv", shp, SMALL_INGEST_K,
+                                       dev),
+        lambda dev: ingest_flushes(small, 64, SMALL_INGEST_K, D, dev), 8,
+        device)
+
+    rng = np.random.default_rng(0)
+    ingest_rows(rng, shp["n_per_op"], K, D, E)  # the sweep's per-op leg's
+    out = []
+    for C in shp["coalesce"]:
+        fl = ingest_flushes(ingest_rows(rng, shp["rows"], K, D, E), C, K,
+                            D, device)
+        for G in shp["gc_every"]:
+            box = [shard("register_mv", shp, K, device)]
+            x = fl[0]["prep"]()                 # warms, outside the loop
+            with no_host_wait():
+                box[0], _ = fl[0]["apply"](box[0], x)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            m = timed_steps(t, box, fl[1:], G)
+            peak = torch.cuda.max_memory_allocated()
+            st = box.pop()
+            read_ms, in_ring = read_checks(f"ingest c{C}_g{G}", t, st,
+                                           fl[-1]["read_vc"], K)
+            n, ops = len(fl) - 1, sum(f["n"] for f in fl[1:])
+            row = {
+                "type": "ingest", "cell": f"c{C}_g{G}", "store":
+                "register_mv", "source": shp["source"], "K": K,
+                "rows": shp["rows"], "C": C, "gc_every": G, "L": L, "E": E,
+                "D": D, "dtype": str(shp["dtype"]).split(".")[-1],
+                "flushes": n, "step_ms": m["loop_s"] * 1e3 / n,
+                "ops_per_s": ops / m["loop_s"],
+                "merges_per_s": (ops - m["dropped"]) / m["loop_s"],
+                "pack_upload_ms": m["prep_s"] * 1e3 / n,
+                "append_ms": m["append_ms"],
+                "append_host_ms": m["call_s"] * 1e3 / n,
+                "gc_ms": m["gc_ms"], "read_ms": read_ms,
+                "dropped": m["dropped"], "max_memory_allocated": peak,
+                "checks": {"card_vs_cpu_s": small_s, "ops_in_ring_at_read":
+                           in_ring, "read_keys_sampled": N_SAMPLE},
+            }
+            print(f"[ingest c{C}_g{G}] K={K} {n} flushes of {C} rows: step "
+                  f"{row['step_ms']:.4f} ms (pack and upload "
+                  f"{row['pack_upload_ms']:.4f} ms, append "
+                  f"{row['append_ms']:.4f} ms, host "
+                  f"{row['append_host_ms']:.4f} ms), GC "
+                  f"{row['gc_ms']:.3f} ms, read {read_ms:.3f} ms, "
+                  f"{row['ops_per_s']:.0f} ops/s, {m['dropped']} dropped, "
+                  f"peak {peak} B; card = CPU, read = read after GC, "
+                  f"read_keys = read rows, no host wait", flush=True)
+            out.append(row)
+            del st
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -361,6 +776,12 @@ def main():
                                                   errs)
     print("[summary] " + json.dumps(
         {"device": name, "power": smi, **summary}), flush=True)
+    del st
+    torch.cuda.empty_cache()
+
+    types = [phase_type(t, device) for t in TYPE_SHAPES]
+    types += phase_ingest(device)
+    print(json.dumps({"types": types}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-"""Card-only tests of the port's CUDA kernels: each kernel against its
-plain version on the card, the superstep on the card against the same
-superstep on the CPU, and the wrappers' refusals.  Every test here skips
-where no CUDA device is present.
+"""Card-only tests of the port: each CUDA kernel against its plain
+version on the card, the superstep and every shard type's store (and the
+packed ingest plane) on the card against the same calls on the CPU, the
+appends and purges that must never wait for the card, and the wrappers'
+refusals.  Every test here skips where no CUDA device is present.
 
 The file imports nothing of JAX, so it also runs where JAX is not
 installed (``--noconftest`` skips tests/conftest.py, which imports it):
@@ -9,12 +10,14 @@ installed (``--noconftest`` skips tests/conftest.py, which imports it):
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
 
+from dataclasses import fields
+
 import numpy as np
 import pytest
 import torch
 
 from antidote_tpu_torch import entry
-from antidote_tpu_torch.mat import gpu_kernels, store
+from antidote_tpu_torch.mat import gpu_kernels, ingest, store, synth
 
 DTYPES = [torch.int32, torch.int64]
 
@@ -114,3 +117,105 @@ def test_wrappers_refuse(cuda_device):
                                   device=cuda_device)
     with pytest.raises(ValueError, match="at most"):
         gpu_kernels.orset_gc_packed(wide.dots, wide.ops, wide.valid, vc)
+
+
+TYPES = ["register_mv", "counter_pn", "set_go", "set_rw", "register_lww"]
+
+
+def _type_flushes(name, device, K, B, rounds, seed=4):
+    """Seeded batches of shard type ``name`` as (append args, frontier)
+    on ``device``."""
+    rng = np.random.default_rng(seed)
+    clock = np.zeros(3, dtype=np.int32)
+    out = []
+    for _ in range(rounds):
+        s = synth.orset_batch(rng, K, B, 8, 3, clock, obs_lag=2)
+        f = synth.type_fields(name, s)
+        f["lane_off"] = store.batch_lane_offsets(f["key_idx"])
+        out.append(([torch.from_numpy(np.ascontiguousarray(f[k])).to(device)
+                     for k in store.SHARD_TYPES[name].fields],
+                    torch.from_numpy(s["frontier"]).to(device)))
+    return out
+
+
+def _shard(name, K, dtype, device):
+    t = store.SHARD_TYPES[name]
+    dims = (K, 8, 8, 8) if t.slots else (K, 8, 8)
+    return t.init(*dims, dtype=dtype, device=device)
+
+
+def _tail(t, st, fr, device):
+    """Purge, full read and read_keys, then the state's tensors."""
+    st = t.purge_keys(st, torch.arange(0, 1100, 41, device=device))
+    out = []
+    for r in (t.read(st, fr), t.read_keys(
+            st, torch.arange(0, 1003, 7, device=device), fr)):
+        out += list(r) if isinstance(r, tuple) else [r]
+    return out + [getattr(st, f.name) for f in fields(st)
+                  if f.name != "n_lanes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", TYPES)
+def test_type_on_card_matches_cpu(cuda_device, name, dtype):
+    t = store.SHARD_TYPES[name]
+    runs = []
+    for device in (cuda_device, torch.device("cpu")):
+        st = _shard(name, 1003, dtype, device)
+        out = []
+        for i, (args, fr) in enumerate(_type_flushes(name, device, 1003,
+                                                     2048, 6)):
+            st, ov = t.append(st, *args)
+            out.append(ov)
+            if i % 3 == 2:
+                st = t.gc(st, fr)
+        runs.append([o.cpu() for o in out + _tail(t, st, fr, device)])
+    assert sum(int(o.sum()) for o in runs[0][:6]) > 0   # some overflow
+    for a, b in zip(*runs):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_packed_append_on_card_matches_cpu(cuda_device):
+    cols = ("s", "s", "s", "vv")
+    perm = ingest.PACKED_PERMS["counter_append"]
+    t = store.SHARD_TYPES["counter_pn"]
+    rng = np.random.default_rng(6)
+    flushes = [ingest.pack_rows(
+        [(int(k), int(d), int(k) % 8, 10 + i, [(int(k) % 8, i)])
+         for i, (k, d) in enumerate(zip(rng.integers(0, 1003, 3000),
+                                        rng.integers(-3, 5, 3000)))],
+        1003, 8, cols, perm) for _ in range(3)]
+    runs = []
+    for device in (cuda_device, torch.device("cpu")):
+        st = _shard("counter_pn", 1003, torch.int64, device)
+        out = []
+        for p in flushes:
+            st, ov = ingest.packed_append(st, torch.from_numpy(p).to(device))
+            out.append(ov)
+        fr = torch.full((8,), 1 << 40, dtype=torch.int64, device=device)
+        runs.append([o.cpu() for o in out + _tail(t, st, fr, device)])
+    for a, b in zip(*runs):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["set_aw"] + TYPES)
+def test_append_and_purge_never_wait_for_the_card(cuda_device, name):
+    t = store.SHARD_TYPES[name]
+    st = _shard(name, 1003, torch.int32, cuda_device)
+    (args, fr), = _type_flushes(name, cuda_device, 1003, 4096, 1)
+    active = torch.arange(4096, device=cuda_device) % 3 != 0
+    keys = torch.tensor([0, 5, 1003, 2000], device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, ov = t.append(st, *args)
+        st, ov = t.append(st, *args, active=active)
+        st = t.purge_keys(st, keys)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert int(st.valid.sum()) > 0
+    assert not bool(st.valid2d[[0, 5]].any())

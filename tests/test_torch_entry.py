@@ -74,8 +74,9 @@ def test_entry_runs_like_the_jax_step():
 def test_state_from_numpy_copies():
     jst, _ = tp.jax_filled(seed=23, K=16, B=32, rounds=1)
     ops = np.array(jst.ops)
-    st = convert.state_from_numpy(jst.dots, jst.base_vc, jst.has_base, ops,
-                                  jst.valid, jst.n_lanes, device="cpu")
+    src = dict(dots=jst.dots, base_vc=jst.base_vc, has_base=jst.has_base,
+               ops=ops, valid=jst.valid, n_lanes=jst.n_lanes)
+    st = convert.state_from_numpy(store.OrsetShardState, src, device="cpu")
     st.ops.zero_()
     assert ops.any()
     assert st.ops.dtype == torch.int32 and st.valid.dtype == torch.bool
@@ -83,7 +84,8 @@ def test_state_from_numpy_copies():
 
 def test_import_leaves_jax_out():
     code = ("import sys, antidote_tpu_torch, antidote_tpu_torch.entry, "
-            "antidote_tpu_torch.mat.convert, antidote_tpu_torch._cuda; "
+            "antidote_tpu_torch.mat.convert, antidote_tpu_torch._cuda, "
+            "antidote_tpu_torch.mat.ingest, antidote_tpu_torch.mat.synth; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'antidote_tpu.')) or "
             "m == 'antidote_tpu']; print(bad); sys.exit(1 if bad else 0)")
@@ -98,9 +100,14 @@ def test_import_leaves_jax_out():
     lambda: entry.entry(K=4, B=4),
     lambda: entry.make_batch(np.random.default_rng(0), 4, 4, 8, 3,
                              np.zeros(3, np.int32)),
-    lambda: convert.state_from_numpy(
-        np.zeros((4, 8, 8), np.int32), np.zeros(8, np.int32), False,
-        np.zeros((32, 22), np.int32), np.zeros(32, bool), 8),
+    lambda: convert.state_from_numpy(store.OrsetShardState, dict(
+        dots=np.zeros((4, 8, 8), np.int32), base_vc=np.zeros(8, np.int32),
+        has_base=False, ops=np.zeros((32, 22), np.int32),
+        valid=np.zeros(32, bool), n_lanes=8)),
+    lambda: store.counter_shard_init(4, 8, 8),
+    lambda: store.lww_shard_init(4, 8, 8),
+    lambda: store.rwset_shard_init(4, 8, 8, 8),
+    lambda: store.setgo_shard_init(4, 8, 8, 8),
 ])
 def test_no_device_raises_without_a_card(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -35,10 +35,7 @@ def _fold_inputs(seed, dtype, K=37, Lx=6, Ex=5, Dx=4):
     )
 
 
-def _same(j, t):
-    j = np.asarray(j)
-    assert j.shape == tuple(t.shape)
-    np.testing.assert_array_equal(j, t.numpy())
+_same = tp.same
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -165,3 +162,100 @@ def test_wrappers_reject_bad_inputs_and_count_no_cpu_launch():
         gpu_kernels.orset_fold_presence(st.dots, st.ops,
                                         st.valid.to(torch.int32))
 
+
+
+# ---------------------------------------------------------------------------
+# the other CRDT types' folds
+
+
+def _to(*xs, jax=False):
+    return [jnp.asarray(x) if jax else torch.from_numpy(x) for x in xs]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("chunk", [None, 8])
+def test_mvreg_apply(dtype, chunk, monkeypatch):
+    """The cross-slot fold, with reset rows (slot E), slots and DCs out
+    of range and a partial mask, also over K in several blocks."""
+    if chunk:
+        monkeypatch.setattr(kernels, "_FOLD_CHUNK", chunk)
+    x = _fold_inputs(4, dtype)
+    args = [x[k] for k in ("base_dots", "elem_slot", "dot_dc", "dot_seq",
+                           "obs_vv", "mask")]
+    _same(jkernels.mvreg_apply(*_to(*args, jax=True)),
+          kernels.mvreg_apply(*_to(*args)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flag_ew_read(dtype):
+    x = _fold_inputs(6, dtype)
+    args = [x["base_dots"][:, 0], x["dot_dc"], x["dot_seq"], x["is_add"],
+            x["obs_vv"], x["mask"]]
+    _same(jkernels.flag_ew_read(*_to(*args, jax=True)),
+          kernels.flag_ew_read(*_to(*args)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_counter_read_promotes_int32_to_int64(dtype):
+    rng = np.random.default_rng(7)
+    nd = np.int32 if dtype == torch.int32 else np.int64
+    args = (rng.integers(-50, 50, size=23).astype(nd),
+            rng.integers(-9, 9, size=(23, 6)).astype(nd),
+            rng.random((23, 6)) < 0.7)
+    want = jkernels.counter_read(*_to(*args, jax=True))
+    got = kernels.counter_read(*_to(*args))
+    _same(want, got)
+    assert got.dtype == torch.int64
+
+
+def test_rw_kinds():
+    assert (kernels.RW_ADD, kernels.RW_RMV, kernels.RW_RESET) == (
+        jkernels.RW_ADD, jkernels.RW_RMV, jkernels.RW_RESET)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("chunk", [None, 8])
+def test_rwset_apply_and_present(dtype, chunk, monkeypatch):
+    if chunk:
+        monkeypatch.setattr(kernels, "_FOLD_CHUNK", chunk)
+    x = _fold_inputs(8, dtype)
+    rng = np.random.default_rng(9)
+    kind = rng.integers(0, 3, size=x["mask"].shape).astype(np.int32)
+    obs_rmv = rng.integers(0, 9, size=x["obs_vv"].shape).astype(
+        x["obs_vv"].dtype)
+    args = [x["base_dots"], x["base_dots"][::-1].copy(), x["elem_slot"],
+            kind, x["dot_dc"], x["dot_seq"], x["obs_vv"], obs_rmv,
+            x["mask"]]
+    want = jkernels.rwset_apply(*_to(*args, jax=True))
+    got = kernels.rwset_apply(*_to(*args))
+    for w, g in zip(want, got):
+        _same(w, g)
+    _same(jkernels.rwset_present(*want), kernels.rwset_present(*got))
+
+
+def test_setgo_apply():
+    x = _fold_inputs(10, torch.int32)
+    base = np.random.default_rng(11).random((37, 5)) < 0.2
+    args = [base, x["elem_slot"], x["mask"]]
+    _same(jkernels.setgo_apply(*_to(*args, jax=True)),
+          kernels.setgo_apply(*_to(*args)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lww_read(dtype):
+    """Few distinct timestamps and tiebreaks, so ties on ts and on (ts,
+    tie) are common; some keys have no included op."""
+    rng = np.random.default_rng(12)
+    nd = np.int32 if dtype == torch.int32 else np.int64
+    K, Lx = 41, 6
+    args = (rng.integers(0, 4, size=K).astype(nd),
+            rng.integers(0, 3, size=K).astype(nd),
+            rng.integers(-1, 9, size=K).astype(nd),
+            rng.integers(0, 5, size=(K, Lx)).astype(nd),
+            rng.integers(0, 3, size=(K, Lx)).astype(nd),
+            rng.integers(0, 50, size=(K, Lx)).astype(nd),
+            rng.random((K, Lx)) < 0.6)
+    want = jkernels.lww_read(*_to(*args, jax=True))
+    got = kernels.lww_read(*_to(*args))
+    for w, g in zip(want, got):
+        _same(w, g)

@@ -1,6 +1,9 @@
 """Shared inputs for the parity tests of antidote_tpu_torch against
-antidote_tpu (tests/test_torch_*.py): seeded synth batches driven
-through the JAX store, and the same state carried across to the port."""
+antidote_tpu (tests/test_torch_*.py): seeded synth batches of every shard
+type driven through the JAX store, and the same state carried across to
+the port."""
+
+from dataclasses import fields
 
 import numpy as np
 import jax.numpy as jnp
@@ -8,66 +11,111 @@ import torch
 
 from antidote_tpu.mat import store as jstore
 from antidote_tpu.mat.synth import orset_batch
+from antidote_tpu_torch.mat import store as tstore
+from antidote_tpu_torch.mat import synth as tsynth
 from antidote_tpu_torch.mat.convert import state_from_numpy
 
 L, E, D, N_DCS = 8, 8, 8, 3
-#: orset_append's batch fields, in its argument order after the state
-FIELDS = ("key_idx", "lane_off", "elem_slot", "is_add", "dot_dc",
-          "dot_seq", "obs_vv", "op_dc", "op_ct", "op_ss")
 JDT = {torch.int32: jnp.int32, torch.int64: jnp.int64}
+#: the port's store of every shard type, by CRDT type name
+TYPES = tstore.SHARD_TYPES
 
 
-def batches(seed, K, B, rounds, obs_lag=2):
-    """``rounds`` seeded synth batches with their lane offsets."""
+def jfn(name, role):
+    """The JAX store's function of ``role`` (a store.ShardType field) for
+    type ``name``: the port's function of that role has its name."""
+    return getattr(jstore, getattr(TYPES[name], role).__name__)
+
+
+def _dims(name, n_lanes, n_slots, n_dcs):
+    return (n_lanes, n_slots, n_dcs) if TYPES[name].slots \
+        else (n_lanes, n_dcs)
+
+
+def jinit(name, K, dtype, n_lanes=L, n_slots=E, n_dcs=D):
+    return jfn(name, "init")(K, *_dims(name, n_lanes, n_slots, n_dcs),
+                             dtype=JDT[dtype])
+
+
+def tinit(name, K, dtype, n_lanes=L, n_slots=E, n_dcs=D):
+    return TYPES[name].init(K, *_dims(name, n_lanes, n_slots, n_dcs),
+                            dtype=dtype, device="cpu")
+
+
+def type_batches(type_name, seed, K, B, rounds, obs_lag=2):
+    """``rounds`` seeded batches of ``type_name`` (numpy dicts of its
+    append fields and the ``frontier``), derived from the JAX package's
+    orset_batch stream by synth.type_fields.  For the tests the counter's
+    deltas are signed and every seventh MV-register op is a reset
+    (val_slot = E, no dot)."""
     rng = np.random.default_rng(seed)
     clock = np.zeros(N_DCS, dtype=np.int32)
     out = []
     for _ in range(rounds):
         s = orset_batch(rng, K, B, D, N_DCS, clock, obs_lag=obs_lag)
-        s["lane_off"] = jstore.batch_lane_offsets(s["key_idx"])
-        out.append(s)
+        f = tsynth.type_fields(type_name, s)
+        if type_name == "counter_pn":
+            f["delta"] = rng.integers(-3, 5, size=B).astype(np.int32)
+        elif type_name == "register_mv":
+            reset = np.arange(B) % 7 == 6
+            f["elem_slot"] = np.where(reset, E, f["elem_slot"]).astype(
+                np.int32)
+            f["dot_seq"] = np.where(reset, 0, f["dot_seq"]).astype(np.int32)
+        f["lane_off"] = jstore.batch_lane_offsets(f["key_idx"])
+        f["frontier"] = s["frontier"]
+        out.append(f)
     return out
 
 
-def jax_append(st, s, active=None):
-    args = [jnp.asarray(s[k]) for k in FIELDS]
+def batches(seed, K, B, rounds, obs_lag=2):
+    """``rounds`` seeded OR-Set batches with their lane offsets."""
+    return type_batches("set_aw", seed, K, B, rounds, obs_lag)
+
+
+def jax_append(st, s, active=None, name="set_aw"):
+    fn = jfn(name, "append")
+    args = [jnp.asarray(s[k]) for k in TYPES[name].fields]
     if active is not None:
-        return jstore.orset_append(st, *args, active=jnp.asarray(active))
-    return jstore.orset_append(st, *args)
+        return fn(st, *args, active=jnp.asarray(active))
+    return fn(st, *args)
 
 
-def port_append(st, s, store, active=None):
-    args = [torch.from_numpy(np.asarray(s[k])) for k in FIELDS]
+def port_append(st, s, store, active=None, name="set_aw"):
+    args = [torch.from_numpy(np.asarray(s[k])) for k in TYPES[name].fields]
     if active is not None:
         active = torch.from_numpy(active)
-    return store.orset_append(st, *args, active=active)
+    return store.SHARD_TYPES[name].append(st, *args, active=active)
 
 
 def jax_filled(seed=4, K=192, B=384, rounds=4, gc_at=1,
-               dtype=torch.int32):
-    """A JAX shard after ``rounds`` batches, GC'd (jnp path) at the
+               dtype=torch.int32, name="set_aw"):
+    """A JAX shard of type ``name`` after ``rounds`` batches, GC'd at the
     frontier of round ``gc_at``; returns (state, end frontier)."""
-    st = jstore.orset_shard_init(K, n_lanes=L, n_slots=E, n_dcs=D,
-                                 dtype=JDT[dtype])
-    for i, s in enumerate(batches(seed, K, B, rounds)):
-        st, _ = jax_append(st, s)
+    st = jinit(name, K, dtype)
+    for i, s in enumerate(type_batches(name, seed, K, B, rounds)):
+        st, _ = jax_append(st, s, name=name)
         if i == gc_at:
-            st = jstore.orset_gc(st, jnp.asarray(s["frontier"]))
+            st = jfn(name, "gc")(st, jnp.asarray(s["frontier"]))
     return st, s["frontier"]
 
 
-def to_port(jst):
+def to_port(jst, name="set_aw"):
     """The JAX shard's state as the port's, on the CPU."""
-    return state_from_numpy(
-        np.asarray(jst.dots), np.asarray(jst.base_vc),
-        np.asarray(jst.has_base), np.asarray(jst.ops), np.asarray(jst.valid),
-        jst.n_lanes, device="cpu")
+    return state_from_numpy(TYPES[name].state, jst, device="cpu")
+
+
+def same(j, t):
+    """A JAX result equals the port's: shape, dtype and values."""
+    j = np.asarray(j)
+    t = t.numpy()
+    assert j.shape == t.shape and j.dtype == t.dtype, (
+        j.shape, j.dtype, t.shape, t.dtype)
+    np.testing.assert_array_equal(j, t)
 
 
 def assert_state_equal(jst, tst):
-    for f in ("dots", "base_vc", "has_base", "ops", "valid"):
-        j = np.asarray(getattr(jst, f))
-        t = getattr(tst, f).numpy()
-        assert j.shape == t.shape, f
-        np.testing.assert_array_equal(j, t, err_msg=f)
-    assert jst.n_lanes == tst.n_lanes
+    for f in fields(tst):
+        if f.name == "n_lanes":
+            assert jst.n_lanes == tst.n_lanes
+        else:
+            same(getattr(jst, f.name), getattr(tst, f.name))
