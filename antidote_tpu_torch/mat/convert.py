@@ -14,12 +14,13 @@ from antidote_tpu_torch import resolve_device
 
 
 def state_from_numpy(cls, src, device=None):
-    """A ``cls`` shard state (one of mat/store.py's ``*ShardState``
-    classes) holding copies of ``src``'s arrays, their types kept, on
-    ``device`` (None: the card, or raise).  ``src`` maps the class's
-    field names to array-likes and ``n_lanes`` to an int; it may be a
-    mapping or any object with those attributes, such as the JAX
-    package's state of the same type."""
+    """A ``cls`` state (one of mat/store.py's ``*ShardState`` classes or
+    mat/rga_store.py's ``RgaStoreState``) holding copies of ``src``'s
+    arrays, their types kept, on ``device`` (None: the card, or raise).
+    ``src`` maps the class's field names to array-likes, and its int
+    fields (``n_lanes``, ``actor_bits``) to ints; it may be a mapping or
+    any object with those attributes, such as the JAX package's state of
+    the same type."""
     dev = resolve_device(device)
     get = src.__getitem__ if isinstance(src, Mapping) else \
         lambda name: getattr(src, name)
@@ -28,6 +29,6 @@ def state_from_numpy(cls, src, device=None):
         v = get(f.name)
         # a copy: the port updates state in place, and must not write
         # through to the caller's arrays
-        out[f.name] = int(v) if f.name == "n_lanes" else \
+        out[f.name] = int(v) if f.type in (int, "int") else \
             torch.tensor(np.asarray(v), device=dev)
     return cls(**out)

@@ -1,7 +1,7 @@
 """Synthetic committed-op streams for the superstep, the smoke run and the
-tests (a copy of antidote_tpu/mat/synth.py's ``orset_batch``, numpy only,
-and :func:`type_fields`, which derives every other shard type's batch
-from it).
+tests (a copy of antidote_tpu/mat/synth.py's ``orset_batch`` and
+``rga_trace``, numpy only, and :func:`type_fields`, which derives every
+other shard type's batch from ``orset_batch``).
 
 Given the same ``default_rng`` seed it builds the same streams as the
 JAX package's generator, so the port and the reference can be driven
@@ -18,6 +18,43 @@ import numpy as np
 TIE_SHIFT = 20
 #: a remove-wins set row's kind (kernels.RW_ADD, RW_RMV, RW_RESET)
 _RW_ADD, _RW_RMV, _RW_RESET = 0, 1, 2
+
+
+def rga_trace(rng, n_ops: int, n_actors: int = 8,
+              p_delete: float = 0.15, actor_bits: int = 8) -> dict:
+    """A valid RGA op log: inserts reference earlier vertices (Lamport
+    child > parent by construction: lamport_i = i+1, refs point backward)
+    plus tombstones on random earlier inserts.
+
+    Returns dense fields for rga_kernel.rga_merge (all lanes valid; the
+    kernel accepts extra padding lanes with valid=False).  Vectorized —
+    usable at 100k+ ops (BASELINE config 4).
+    """
+    n_ins = int(n_ops * (1.0 - p_delete))
+    n_del = n_ops - n_ins
+    assert n_actors <= (1 << actor_bits), "actor overflow"
+    # packed uid must stay strictly below INT32_MAX (padding sentinel)
+    assert (((n_ins + 1) << actor_bits) | ((1 << actor_bits) - 1)) \
+        < 2**31 - 1, "lamport overflow"
+    lam = np.arange(1, n_ins + 1, dtype=np.int32)
+    actor = rng.integers(0, n_actors, size=n_ins).astype(np.int32)
+    # ref: head with small probability, else a random earlier vertex,
+    # biased to recent ones (typing locality)
+    ref_idx = np.maximum(
+        0, np.arange(n_ins) - 1 - rng.geometric(0.3, size=n_ins)
+    ).astype(np.int64)
+    at_head = (rng.random(n_ins) < 0.02) | (np.arange(n_ins) == 0)
+    ref_lam = np.where(at_head, 0, lam[ref_idx]).astype(np.int32)
+    ref_act = np.where(at_head, 0, actor[ref_idx]).astype(np.int32)
+    elem = rng.integers(0, 64, size=n_ins).astype(np.int32)
+    tgt = rng.integers(0, n_ins, size=max(n_del, 1)).astype(np.int64)
+    return dict(
+        ins_lamport=lam, ins_actor=actor, ref_lamport=ref_lam,
+        ref_actor=ref_act, elem=elem,
+        valid=np.ones(n_ins, dtype=bool),
+        del_lamport=lam[tgt], del_actor=actor[tgt],
+        del_valid=np.full(max(n_del, 1), n_del > 0),
+    )
 
 
 def orset_batch(rng, K: int, B: int, D: int, n_dcs: int,

@@ -50,7 +50,19 @@ and nvcc.  Phases, each of which fails the run on any error or mismatch:
    in flushes of 8 and of 64 rows, a GC every 2 and every 8 flushes at
    the flush's frontier, each flush packed on the host, uploaded and
    appended inside the timed loop.  The same checks as phase 6, every
-   ``packed_append`` and the purge under the sync check.
+   ``packed_append`` and the purge under the sync check;
+8. the RGA collaborative-text path (mat/rga_store.py, mat/rga_kernel.py)
+   as BASELINE config 4's bench drives it (``RGA``): a 100,000-insert
+   document built in blocks of 4,096 with a fold after each, one warm-up
+   step, then 8 timed steps of 1,024 inserts and the deletes whose
+   targets are in, each ``rga_append_coalesced`` (under the sync check),
+   ``rga_read_doc`` at the latest snapshot and, every 8th step,
+   ``rga_fold_host`` one block behind; then the one-shot ``rga_merge``
+   of a 100,000-op log.  Every step's document must equal the one-shot
+   merge of the ops fed so far, and the whole run and the one-shot
+   merge must equal the same calls on the CPU; the read, the fold and
+   the merge run once more under the sync check, and the timed steps
+   once more under torch.profiler for the card's busy share.
 
 The line before the last carries the nvidia-smi reading, the ones before
 it the ``kernels`` and ``types`` JSON objects; the last line is
@@ -70,7 +82,8 @@ import torch
 
 from antidote_tpu_torch import _cuda, entry
 from antidote_tpu_torch.mat import gpu_kernels as gk
-from antidote_tpu_torch.mat import ingest, store, synth
+from antidote_tpu_torch.mat import (ingest, rga_kernel, rga_store, store,
+                                    synth)
 
 # H100 SXM (NVIDIA's data sheet): HBM3 rate
 HBM_BYTES_PER_S = 3.35e12
@@ -106,6 +119,21 @@ INGEST = dict(K=65_536, rows=8_192, coalesce=(8, 64), gc_every=(2, 8),
                      "n_coalesced=8,192)")
 #: the MV-register plane's decoded-row tags (device_plane ``_row_cols``)
 MVREG_ROW_COLS = ("s", "s", "s", "s", "vv", "s", "s", "vv")
+#: the RGA phase: BASELINE config 4 as its bench's ``main`` runs it
+#: (nothing is cut).  The steady leg builds a document of ``n_base``
+#: inserts in blocks of ``build_block`` with a fold after each, runs one
+#: warm-up step, then ``steps`` timed steps of ``block`` inserts and the
+#: deletes whose targets are in: an append, the visible document at the
+#: latest snapshot, and every ``fold_every``-th step a fold one block
+#: behind.  The one-shot leg merges a log of ``oneshot_ops`` ops.
+RGA = dict(n_base=100_000, build_block=4_096, block=1_024, steps=8,
+           fold_every=8, p_delete=0.15, oneshot_ops=100_000,
+           source="benches/config4_rga.py:234-247 (main), with "
+                  "steady_state_ops_per_sec :27-147 and "
+                  "oneshot_ops_per_sec :199-209")
+RGA_LATEST = np.iinfo(np.int64).max // 2
+MERGE_ARGS = ("ins_lamport", "ins_actor", "ref_lamport", "ref_actor", "elem",
+              "valid", "del_lamport", "del_actor", "del_valid")
 TYPE_WARMUP, TYPE_STEPS = 2, 8
 SMALL_K, SMALL_B, SMALL_ROUNDS = 4_096, 8_192, 6
 SMALL_INGEST_K, SMALL_INGEST_ROWS = 512, 4_096
@@ -749,6 +777,272 @@ def phase_ingest(device):
     return out
 
 
+def rga_cols(tr, lo, hi, dlo, dhi):
+    """rga_append's host columns of inserts [lo, hi) and deletes
+    [dlo, dhi), with the bench's single-DC commit clocks: insert i
+    commits at i + 1, the block's deletes at ``hi``."""
+    def vc(stamps):
+        return (np.zeros(len(stamps), np.int32), stamps,
+                np.zeros((len(stamps), 1), np.int64))
+    ins = tuple(tr[k][lo:hi] for k in MERGE_ARGS[:5])
+    return (ins + vc(np.arange(lo + 1, hi + 1, dtype=np.int64)),
+            (tr["del_lamport"][dlo:dhi], tr["del_actor"][dlo:dhi])
+            + vc(np.full(dhi - dlo, hi, dtype=np.int64)))
+
+
+def rga_stream(shp):
+    """Config 4's steady-state log cut into blocks as its bench feeds
+    them.  Returns (log, blocks, n_build, store shape): the log's deletes
+    sorted by lamport, as a delete is fed once its target is in; each
+    block is (insert columns, delete columns, inserts fed, deletes fed)
+    after it; the first ``n_build`` blocks build the base."""
+    p, block, n_base = shp["p_delete"], shp["block"], shp["n_base"]
+    need = n_base + (1 + shp["steps"]) * block
+    tr = synth.rga_trace(np.random.default_rng(0),
+                         int(need / (1 - p)) + 64, p_delete=p)
+    n = len(tr["ins_lamport"])
+    if n < need:
+        fail(f"rga: the log has {n} inserts, the run needs {need}")
+    order = np.argsort(tr["del_lamport"], kind="stable")
+    tr["del_lamport"] = tr["del_lamport"][order]
+    tr["del_actor"] = tr["del_actor"][order]
+    his = [min(lo + shp["build_block"], n_base)
+           for lo in range(0, n_base, shp["build_block"])]
+    n_build = len(his)
+    his += [n_base + (i + 1) * block for i in range(1 + shp["steps"])]
+    blocks, lo, dlo = [], 0, 0
+    for hi in his:
+        dhi = dlo + int(np.searchsorted(tr["del_lamport"][dlo:], hi,
+                                        side="right"))
+        blocks.append((*rga_cols(tr, lo, hi, dlo, dhi), hi, dhi))
+        lo, dlo = hi, dhi
+    shape = dict(pb=1 << (n - 1).bit_length(), nw=16 * block, md=4 * block)
+    return tr, blocks, n_build, shape
+
+
+def rga_step(st, blk, fold, latest, block, span):
+    """One config-4 step through the store's entry points:
+    ``rga_append_coalesced`` of the block (on the card under the sync
+    check), the visible document at ``latest``, and with ``fold``
+    ``rga_fold_host`` one block behind.  ``span(name)`` wraps each call.
+    Returns (state, ok, (document, n_visible))."""
+    ins, dl, hi, _ = blk
+    with span("append"), maybe_no_host_wait(st.wn.device):
+        st, ok = rga_store.rga_append_coalesced(st, ins, dl)
+    with span("read"):
+        doc = rga_store.rga_read_doc(st, latest)
+    if fold:
+        with span("fold"):
+            st = rga_store.rga_fold_host(st, hi - block)
+    return st, ok, doc
+
+
+def rga_state_to(st, device):
+    return replace(st, **{f.name: getattr(st, f.name).to(device, copy=True)
+                          for f in fields(st) if f.name != "actor_bits"})
+
+
+def rga_steady(device, blocks, n_build, shape, shp):
+    """Config 4's steady leg on ``device``: the base build (a coalesced
+    append under the sync check and ``rga_fold_host`` at the block's end,
+    a block each), the warm-up step with a fold, then the timed steps.
+    Returns (final state, every step's document, every append's ok,
+    stats).  The stats are None on the CPU; on the card they hold the
+    timed loop's seconds, each call's CUDA-event ms, the peak memory and
+    a copy on the CPU of the state before the timed steps."""
+    cuda = torch.device(device).type == "cuda"
+    latest = torch.tensor([RGA_LATEST], dtype=torch.int64, device=device)
+    ev = {"append": [], "read": [], "fold": []}
+
+    @contextmanager
+    def span(what):
+        e = events() if cuda else None
+        if e:
+            e[0].record()
+        yield
+        if e:
+            e[1].record()
+            ev[what].append(e)
+
+    st = rga_store.rga_store_init(**shape, device=device)
+    oks, docs = [], []
+    for ins, dl, hi, _ in blocks[:n_build]:
+        with maybe_no_host_wait(device):
+            st, ok = rga_store.rga_append_coalesced(st, ins, dl)
+        oks.append(ok)
+        st = rga_store.rga_fold_host(st, hi)
+    for i, blk in enumerate(blocks[n_build:]):
+        if i == 1:                              # after the warm-up
+            start = rga_state_to(st, "cpu") if cuda else None
+            for v in ev.values():
+                v.clear()
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+        st, ok, doc = rga_step(st, blk, i % shp["fold_every"] == 0, latest,
+                               shp["block"], span)
+        oks.append(ok)
+        docs.append(doc)
+    if not cuda:
+        return st, docs, oks, None
+    torch.cuda.synchronize()
+    return st, docs, oks, dict(
+        loop_s=time.perf_counter() - t0, start=start,
+        peak=torch.cuda.max_memory_allocated(),
+        ms={k: [a.elapsed_time(b) for a, b in v] for k, v in ev.items()})
+
+
+def rga_profile(start, timed, shp, device):
+    """The timed steps again, from the state before them, under
+    torch.profiler: the card's busy share of the loop's wall time and
+    the largest device times.  Returns (busy share, the loop's ms under
+    the profiler, device launches a step, [(op, device ms a step)],
+    final state)."""
+    st = rga_state_to(start, device)
+    latest = torch.tensor([RGA_LATEST], dtype=torch.int64, device=device)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i, blk in enumerate(timed):
+            st, _, _ = rga_step(st, blk, (i + 1) % shp["fold_every"] == 0,
+                                latest, shp["block"],
+                                lambda what: nullcontext())
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in ops) / 1e3
+    launches = sum(e.count for e in ops if e.self_device_time_total > 0)
+    top = [(e.key[:60], e.self_device_time_total / 1e3 / len(timed))
+           for e in ops[:8] if e.self_device_time_total > 0]
+    return device_ms / wall_ms, wall_ms, launches / len(timed), top, st
+
+
+def rga_state_tensors(st):
+    return tuple(getattr(st, f.name) for f in fields(st)
+                 if f.name != "actor_bits")
+
+
+def med_range(xs):
+    return {"median": float(np.median(xs)), "min": float(min(xs)),
+            "max": float(max(xs)), "n": len(xs)}
+
+
+def phase_rga(device):
+    """Phase 8: BASELINE config 4 on the card (``RGA``).  The steady leg
+    through the store, every step's document against the one-shot merge
+    of the ops fed so far, the whole leg and the one-shot replay against
+    the same calls on the CPU, the read and fold under the sync check,
+    and one profiled replay of the timed steps.  Returns its summary
+    row."""
+    shp = RGA
+    tr, blocks, n_build, shape = rga_stream(shp)
+    st, docs, oks, m = rga_steady(device, blocks, n_build, shape, shp)
+    if not bool(torch.stack(oks).all()):
+        fail("[rga] an append was refused")
+
+    # every step's document is the one-shot merge of the ops fed so far
+    t0 = time.perf_counter()
+    log = {k: torch.from_numpy(tr[k]).to(device) for k in MERGE_ARGS}
+    lanes = torch.arange(len(tr["ins_lamport"]), device=device)
+    dlanes = torch.arange(len(tr["del_lamport"]), device=device)
+    for (doc, n_vis), (_, _, fed, fed_d) in zip(docs, blocks[n_build:]):
+        want, want_n, _, _ = rga_kernel.rga_merge(**dict(
+            log, valid=lanes < fed, del_valid=dlanes < fed_d))
+        k = int(want_n)
+        if int(n_vis) != k or not torch.equal(doc[:k], want[:k]) \
+                or bool((doc[k:] != -1).any()):
+            fail(f"[rga] the document after {fed} inserts and {fed_d} "
+                 f"deletes ({int(n_vis)} visible) is not the one-shot "
+                 f"merge's ({k} visible)")
+    oneshot_check_s = time.perf_counter() - t0
+
+    # the one-shot replay
+    one = synth.rga_trace(np.random.default_rng(0), shp["oneshot_ops"])
+    args = [torch.from_numpy(one[k]).to(device) for k in MERGE_ARGS]
+    torch.cuda.synchronize()
+    with no_host_wait():
+        merged = rga_kernel.rga_merge(*args)
+    oneshot_ms = cuda_ms(lambda: rga_kernel.rga_merge(*args), 5)
+    n_vis = int(merged[1])
+    if not 0 < n_vis < len(one["ins_lamport"]) or \
+            merged[0].shape != (len(one["ins_lamport"]),):
+        fail(f"[rga] one-shot merge: {n_vis} visible of a "
+             f"{tuple(merged[0].shape)} document")
+
+    # the card against the CPU: the whole steady leg and the one-shot
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    st_c, docs_c, oks_c, _ = rga_steady(cpu, blocks, n_build, shape, shp)
+    same_or_fail("[rga] final state, card against CPU",
+                 rga_state_tensors(st), rga_state_tensors(st_c))
+    same_or_fail("[rga] documents and oks, card against CPU",
+                 tuple(x for d in docs for x in d) + tuple(oks),
+                 tuple(x for d in docs_c for x in d) + tuple(oks_c))
+    same_or_fail("[rga] one-shot merge, card against CPU", merged,
+                 rga_kernel.rga_merge(*(a.cpu() for a in args)))
+    card_vs_cpu_s = time.perf_counter() - t0
+
+    # the read and the fold's device part at the final state: the sync
+    # check, then their times (both leave the state as it is)
+    latest = torch.tensor([RGA_LATEST], dtype=torch.int64, device=device)
+    gst = torch.tensor([blocks[-1][2] - shp["block"]], dtype=torch.int64,
+                       device=device)
+    torch.cuda.synchronize()
+    with no_host_wait():
+        rga_store.rga_read_doc(st, latest)
+        rga_store.rga_fold(st, gst)
+    read_ms = cuda_ms(lambda: rga_store.rga_read_doc(st, latest), 20)
+    fold_ms = cuda_ms(lambda: rga_store.rga_fold(st, gst), 10)
+
+    timed = blocks[n_build + 1:]
+    busy, prof_ms, launches, top, st_p = rga_profile(m["start"], timed, shp,
+                                                     device)
+    same_or_fail("[rga] profiled replay's final state",
+                 rga_state_tensors(st_p), rga_state_tensors(st))
+
+    steps, block = shp["steps"], shp["block"]
+    ev = m["ms"]
+    row = {
+        "type": "rga", "source": shp["source"], "n_base": shp["n_base"],
+        "build_block": shp["build_block"], "block": block, "steps": steps,
+        "fold_every": shp["fold_every"], **shape, "D": 1,
+        "log_inserts": len(tr["ins_lamport"]),
+        "log_deletes": len(tr["del_lamport"]),
+        "doc_visible": int(docs[-1][1]), "base_rows": int(st.bn),
+        "window_ops": int(st.wn), "pending_deletes": int(st.dn),
+        "steady_ops_per_s": steps * block / m["loop_s"],
+        "step_ms": m["loop_s"] * 1e3 / steps,
+        "append_ms": med_range(ev["append"]),
+        "read_doc_ms": med_range(ev["read"]),
+        "fold_host_ms": ev["fold"],
+        "fold_host_amortised_ms": sum(ev["fold"]) / steps,
+        "read_doc_ms_final": read_ms, "fold_ms_final": fold_ms,
+        "oneshot_ops": shp["oneshot_ops"], "oneshot_ms": oneshot_ms,
+        "oneshot_ops_per_s": shp["oneshot_ops"] / oneshot_ms * 1e3,
+        "oneshot_visible": n_vis, "max_memory_allocated": m["peak"],
+        "busy_share": busy, "profiled_loop_ms": prof_ms,
+        "device_launches_a_step": launches, "device_ms_a_step_by_op": top,
+        "checks": {"steps_equal_oneshot": len(docs),
+                   "oneshot_check_s": oneshot_check_s,
+                   "card_vs_cpu_s": card_vs_cpu_s},
+    }
+    print(f"[rga] {shp['n_base']}-insert base, pb={shape['pb']} "
+          f"nw={shape['nw']} md={shape['md']}: {steps} steps of {block} "
+          f"inserts, {row['steady_ops_per_s']:.0f} ops/s (step "
+          f"{row['step_ms']:.3f} ms; append {row['append_ms']['median']:.3f}"
+          f", read {row['read_doc_ms']['median']:.3f}, fold "
+          f"{ev['fold']} ms); one-shot {oneshot_ms:.3f} ms "
+          f"({row['oneshot_ops_per_s']:.0f} ops/s); peak {m['peak']} B; "
+          f"busy {busy:.3f} of the profiled loop; {len(docs)} documents = "
+          f"one-shot merges, card = CPU, no host wait in the appends, the "
+          f"read, the fold and the merge", flush=True)
+    print(f"[rga] {launches:.1f} device launches a step; device ms a step "
+          f"by op: {top}", flush=True)
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -781,6 +1075,7 @@ def main():
 
     types = [phase_type(t, device) for t in TYPE_SHAPES]
     types += phase_ingest(device)
+    types.append(phase_rga(device))
     print(json.dumps({"types": types}))
     print(json.dumps({"kernels": rows}))
     print(smi)

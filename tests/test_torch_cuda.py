@@ -1,8 +1,9 @@
 """Card-only tests of the port: each CUDA kernel against its plain
-version on the card, the superstep and every shard type's store (and the
-packed ingest plane) on the card against the same calls on the CPU, the
-appends and purges that must never wait for the card, and the wrappers'
-refusals.  Every test here skips where no CUDA device is present.
+version on the card, the superstep, every shard type's store, the packed
+ingest plane and the RGA merge and store on the card against the same
+calls on the CPU, the appends, purges, RGA reads and folds that must
+never wait for the card, and the wrappers' refusals.  Every test here
+skips where no CUDA device is present.
 
 The file imports nothing of JAX, so it also runs where JAX is not
 installed (``--noconftest`` skips tests/conftest.py, which imports it):
@@ -17,7 +18,8 @@ import pytest
 import torch
 
 from antidote_tpu_torch import entry
-from antidote_tpu_torch.mat import gpu_kernels, ingest, store, synth
+from antidote_tpu_torch.mat import (gpu_kernels, ingest, rga_kernel,
+                                    rga_store, store, synth)
 
 DTYPES = [torch.int32, torch.int64]
 
@@ -219,3 +221,80 @@ def test_append_and_purge_never_wait_for_the_card(cuda_device, name):
     torch.cuda.synchronize()
     assert int(st.valid.sum()) > 0
     assert not bool(st.valid2d[[0, 5]].any())
+
+
+_LATEST = [np.iinfo(np.int64).max // 2]
+
+
+def _rga_blocks(n_ops=900, block=96, seed=2):
+    """A seeded RGA trace cut into blocks of host columns (insert i
+    stamped i+1, the deletes whose targets are in stamped after them)."""
+    tr = synth.rga_trace(np.random.default_rng(seed), n_ops, n_actors=5)
+    n = len(tr["ins_lamport"])
+    dl = np.argsort(tr["del_lamport"], kind="stable")
+    dlam, dact = tr["del_lamport"][dl], tr["del_actor"][dl]
+    out, dptr = [], 0
+    for lo in range(0, n, block):
+        hi = min(lo + block, n)
+        dhi = dptr + int(np.searchsorted(dlam[dptr:], hi, side="right"))
+        k, c = hi - lo, dhi - dptr
+        z = lambda m: np.zeros(m, np.int32)
+        zz = lambda m: np.zeros((m, 1), np.int64)
+        out.append(((tr["ins_lamport"][lo:hi], tr["ins_actor"][lo:hi],
+                     tr["ref_lamport"][lo:hi], tr["ref_actor"][lo:hi],
+                     tr["elem"][lo:hi], z(k),
+                     np.arange(lo + 1, hi + 1, dtype=np.int64), zz(k)),
+                    (dlam[dptr:dhi], dact[dptr:dhi], z(c),
+                     np.full(c, hi, np.int64), zz(c)), hi))
+        dptr = dhi
+    return tr, out
+
+
+def _rga_run(device):
+    """The one-shot merge of a trace, then its blocks through the store
+    on ``device`` (coalesced appends, both reads, a lagged fold every 2
+    blocks); every output and the final state, on the CPU."""
+    tr, blocks = _rga_blocks()
+    out = [v.cpu() for v in rga_kernel.rga_merge_full(
+        *(torch.from_numpy(tr[k]).to(device) for k in (
+            "ins_lamport", "ins_actor", "ref_lamport", "ref_actor", "elem",
+            "valid", "del_lamport", "del_actor", "del_valid"))).values()]
+    st = rga_store.rga_store_init(256, 512, 256, device=device)
+    for i, (ins, dl, hi) in enumerate(blocks):
+        st, ok = rga_store.rga_append_coalesced(st, ins, dl)
+        out.append(ok.cpu())
+        for rv in (_LATEST, [hi - 50]):
+            rv = torch.tensor(rv, dtype=torch.int64, device=device)
+            out += [x.cpu() for x in rga_store.rga_read(st, rv)]
+            out += [x.cpu() for x in rga_store.rga_read_doc(st, rv)]
+        if i % 2 == 1:
+            st = rga_store.rga_fold_host(st, hi - 96)
+    return out + [getattr(st, f.name).cpu() for f in fields(st)
+                  if f.name != "actor_bits"]
+
+
+@pytest.mark.cuda
+def test_rga_on_card_matches_cpu(cuda_device):
+    card, cpu = _rga_run(cuda_device), _rga_run(torch.device("cpu"))
+    assert len(card) == len(cpu)
+    for a, b in zip(card, cpu):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_rga_append_read_fold_never_wait_for_the_card(cuda_device):
+    _tr, blocks = _rga_blocks()
+    st = rga_store.rga_store_init(256, 512, 256, device=cuda_device)
+    rv = torch.tensor(_LATEST, dtype=torch.int64, device=cuda_device)
+    gst = torch.tensor([200], dtype=torch.int64, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for ins, dl, _hi in blocks[:3]:
+            st, ok = rga_store.rga_append_coalesced(st, ins, dl)
+        rga_store.rga_read_doc(st, rv)
+        st, n = rga_store.rga_fold(st, gst)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(ok) and int(n) == 200 and int(st.wn) == sum(
+        len(ins[0]) for ins, _dl, _hi in blocks[:3]) - 200

@@ -114,8 +114,70 @@ def same(j, t):
 
 
 def assert_state_equal(jst, tst):
+    """Every field of a JAX state equals the port's: its int fields
+    (``n_lanes``, ``actor_bits``) and each array's shape, dtype and
+    values."""
     for f in fields(tst):
-        if f.name == "n_lanes":
-            assert jst.n_lanes == tst.n_lanes
+        if f.type in (int, "int"):
+            assert getattr(jst, f.name) == getattr(tst, f.name), f.name
         else:
             same(getattr(jst, f.name), getattr(tst, f.name))
+
+
+def replica_trace(rng, n_steps, n_replicas=4, p_delete=0.15, p_sync=0.1):
+    """Simulate replicas generating RGA ops with per-replica Lamport
+    clocks, so concurrent inserts with equal lamports and different
+    actors occur (a copy of tests/unit/test_rga_kernel.py's generator).
+    Returns (inserts, deletes), insert = (lamport, actor, ref_lamport,
+    ref_actor, elem), delete = (lamport, actor)."""
+    known = [set() for _ in range(n_replicas)]   # uids known per replica
+    clock = [0] * n_replicas
+    inserts, deletes = [], []
+    alive = [set() for _ in range(n_replicas)]
+    for step in range(n_steps):
+        r = int(rng.integers(0, n_replicas))
+        if rng.random() < p_sync and step:
+            o = int(rng.integers(0, n_replicas))
+            known[r] |= known[o]
+            alive[r] |= {u for u in alive[o] if u in known[r]}
+            clock[r] = max(clock[r], clock[o])
+            continue
+        if alive[r] and rng.random() < p_delete:
+            uid = sorted(alive[r])[int(rng.integers(0, len(alive[r])))]
+            deletes.append(uid)
+            for a in alive:
+                a.discard(uid)
+            continue
+        if known[r] and rng.random() > 0.1:
+            ref = sorted(known[r])[int(rng.integers(0, len(known[r])))]
+        else:
+            ref = (0, 0)
+        # Lamport: strictly above everything this replica has seen,
+        # including the ref — child.lamport > parent.lamport
+        clock[r] = max(clock[r], ref[0]) + 1
+        uid = (clock[r], r)
+        inserts.append((uid[0], uid[1], ref[0], ref[1],
+                        int(rng.integers(0, 64))))
+        known[r].add(uid)
+        alive[r].add(uid)
+    return inserts, deletes
+
+
+def merge_fields(inserts, deletes, pad=0, del_pad=0):
+    """rga_merge's keyword arrays for explicit insert and delete tuples,
+    with ``pad`` padding insert lanes and ``del_pad`` padding delete
+    lanes (valid False); at least one delete lane."""
+    n, m = len(inserts) + pad, max(len(deletes) + del_pad, 1)
+    z = lambda k: np.zeros(k, dtype=np.int32)
+    f = dict(ins_lamport=z(n), ins_actor=z(n), ref_lamport=z(n),
+             ref_actor=z(n), elem=z(n), valid=np.zeros(n, dtype=bool),
+             del_lamport=z(m), del_actor=z(m),
+             del_valid=np.zeros(m, dtype=bool))
+    for i, (lam, act, rlam, ract, el) in enumerate(inserts):
+        f["ins_lamport"][i], f["ins_actor"][i] = lam, act
+        f["ref_lamport"][i], f["ref_actor"][i] = rlam, ract
+        f["elem"][i], f["valid"][i] = el, True
+    for i, (lam, act) in enumerate(deletes):
+        f["del_lamport"][i], f["del_actor"][i] = lam, act
+        f["del_valid"][i] = True
+    return f
