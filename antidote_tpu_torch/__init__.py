@@ -4,7 +4,9 @@ The port runs the OR-Set (``set_aw``) materializer superstep — append a
 batch of committed ops into each key's ring lanes, fold the ops stable
 at the GST into the base dot table, and read every key's element
 presence at a read vector clock — on one NVIDIA H100, through the
-hand-written CUDA kernels in ``csrc/orset_kernels.cu``.
+hand-written CUDA kernels in ``csrc/orset_kernels.cu``; the shard store
+of every other CRDT type, the RGA sequence store, and the live device
+plane over them (``mat/device_plane.py``) in plain PyTorch.
 
 The package imports ``torch`` and never ``jax``: it carries its own
 copies of what it needs from the JAX package.  Entry points that create

@@ -9,9 +9,9 @@ the device and lands the batch with the store's own single-scatter
 epilogue (``store._scatter_rows``): no per-column uploads, no column
 shuffle on the device, and no wait for the card.
 
-The flush and dispatch counters of the JAX module (``note_flush``,
-``note_dispatch``) feed its stats registry and tracer, which the port
-does not have yet; they come with those modules.
+INGEST_* metric families (stats.py) record the economy: flushes by
+trigger kind (:func:`note_flush`), coalesced ops, upload bytes and ops
+per dispatch (:func:`note_dispatch`).
 """
 
 from __future__ import annotations
@@ -22,7 +22,19 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from antidote_tpu_torch import stats
 from antidote_tpu_torch.mat import store
+from antidote_tpu_torch.obs.spans import tracer
+
+#: flush trigger kinds (the ``kind`` label of
+#: antidote_ingest_flushes_total): ``rows`` = the device_flush_ops
+#: threshold, ``window`` = the coalescing window expired, ``budget`` =
+#: the hard row cap forced an inline flush, ``read`` = a reader needed
+#: pending rows, ``gc`` = a fold horizon flushed first, ``grow`` = a
+#: capacity regrade drained stale-width rows, ``explicit`` = an
+#: operator/test flush
+INGEST_FLUSH_KINDS = ("rows", "window", "budget", "read", "gc", "grow",
+                      "explicit")
 
 _MIN_BUCKET = 64
 
@@ -55,8 +67,8 @@ class IngestSettings:
 def ingest_from_config(config) -> IngestSettings:
     """The one construction path for ingest settings.  ``config`` is any
     object with ``mat_ingest``, ``mat_coalesce_us`` and
-    ``mat_coalesce_rows`` (the JAX package's ``Config`` until the port
-    has its own), or None for the defaults."""
+    ``mat_coalesce_rows`` (``config.Config``), or None for the
+    defaults."""
     if config is None:
         return IngestSettings()
     return IngestSettings(
@@ -160,3 +172,30 @@ def packed_append(st, packed: torch.Tensor,
     consumes ``st`` and never waits for the card."""
     key_idx, lane_off, rows = split_packed(packed, st.ops.dtype)
     return store._scatter_rows(st, key_idx, lane_off, rows, active)
+
+
+# ---------------------------------------------------------------------------
+# metrics
+
+def note_flush(kind: str) -> None:
+    """Count one flush event by trigger kind (``INGEST_FLUSH_KINDS``),
+    and put an instant on the trace timeline: a sampled txn's journey
+    shows the flush that made its staged ops visible on the device."""
+    stats.registry.ingest_flushes.inc(kind=kind)
+    tracer.instant("ingest_flush", "device", kind=kind)
+
+
+def note_dispatch(ops: int, h2d_bytes: int, replicas: int = 1) -> None:
+    """Record one packed device dispatch (``ops`` coalesced rows in one
+    ``h2d_bytes`` upload) and refresh the amortization gauge, coalesced
+    ops per dispatch over the process lifetime.  ``replicas``: how many
+    devices the upload lands on, so the byte counter reports the real
+    upload traffic."""
+    reg = stats.registry
+    reg.ingest_dispatches.inc()
+    reg.ingest_coalesced_ops.inc(ops)
+    reg.ingest_h2d_bytes.inc(h2d_bytes * max(int(replicas), 1))
+    total = reg.ingest_dispatches.value()
+    if total:
+        reg.ingest_ops_per_dispatch.set(
+            reg.ingest_coalesced_ops.value() / total)

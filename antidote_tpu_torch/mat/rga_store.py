@@ -42,9 +42,9 @@ appends never wait for the card (``ok`` stays a 0-d bool tensor;
 neither do :func:`rga_read` and :func:`rga_fold`.
 :func:`rga_append_padded` uploads each column on its own and
 :func:`rga_fold_host` reads the counters to the host, as the JAX ones
-do.  The JAX coalesced append's
-dispatch counter (``ingest.note_dispatch``) and its ``kernel_span``
-profiling come with the port's stats and ``obs/`` modules.
+do.  :func:`rga_append_coalesced` counts its dispatch in
+the INGEST_* metrics (``ingest.note_dispatch``); the JAX functions'
+``kernel_span`` profiling is not ported yet.
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ import torch
 
 from antidote_tpu_torch import resolve_device
 from antidote_tpu_torch.clocks import dense
-from antidote_tpu_torch.mat import rga_kernel
+from antidote_tpu_torch.mat import ingest, rga_kernel
 from antidote_tpu_torch.mat.rga_kernel import (
     _I32MAX, _lexsort2, _shift_down, argsort, pack_uid, searchsorted,
     set_drop)
@@ -267,8 +267,9 @@ def rga_append_coalesced(st: RgaStoreState, ins_cols, del_cols,
     """:func:`rga_append_padded`'s bucketing with one upload: both lane
     blocks pack into ONE int64 ``[bp+cp, 7+D]`` host array and ONE
     host-to-device copy (vs 13 per-column uploads), then
-    :func:`rga_append_packed`.  Same argument tuples and return as
-    rga_append_padded; never waits for the card."""
+    :func:`rga_append_packed`, counted in the INGEST_* metrics.  Same
+    argument tuples and return as rga_append_padded; never waits for the
+    card."""
     b = int(np.asarray(ins_cols[0]).shape[0])
     c = int(np.asarray(del_cols[0]).shape[0])
     bp, cp = _append_bucket(b, floor), _append_bucket(c, floor)
@@ -286,7 +287,9 @@ def rga_append_coalesced(st: RgaStoreState, ins_cols, del_cols,
     # would wait for the card's queued work
     x = x.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" \
         else x.to(dev)
-    return rga_append_packed(st, x, bp, b, c)
+    st, ok = rga_append_packed(st, x, bp, b, c)
+    ingest.note_dispatch(b + c, packed.nbytes)
+    return st, ok
 
 
 def _included(ss, dc, ct, rv):

@@ -1,7 +1,9 @@
 """Synthetic committed-op streams for the superstep, the smoke run and the
 tests (a copy of antidote_tpu/mat/synth.py's ``orset_batch`` and
 ``rga_trace``, numpy only, and :func:`type_fields`, which derives every
-other shard type's batch from ``orset_batch``).
+other shard type's batch from ``orset_batch``), and :class:`StreamGen`,
+the device plane's stream of committed payloads of every CRDT type
+(a copy of the generator of tests/device/test_device_plane.py).
 
 Given the same ``default_rng`` seed it builds the same streams as the
 JAX package's generator, so the port and the reference can be driven
@@ -12,7 +14,13 @@ here.
 
 from __future__ import annotations
 
+import random
+
 import numpy as np
+
+from antidote_tpu_torch.clocks import VC
+from antidote_tpu_torch.crdt import DownstreamCtx, get_type
+from antidote_tpu_torch.mat.materializer import Payload
 
 #: bits of an LWW tiebreak below the actor rank (rank << TIE_SHIFT | seq)
 TIE_SHIFT = 20
@@ -134,3 +142,149 @@ def type_fields(type_name: str, s: dict) -> dict:
     else:
         raise ValueError(f"no shard type {type_name!r}")
     return out
+
+
+class StreamGen:
+    """Random committed multi-DC op stream with causally consistent
+    snapshot VCs (each DC's snapshot covers everything it applied)."""
+
+    def __init__(self, seed, dcs=("dc1", "dc2", "dc3"), keys=6, elems=5):
+        self.rng = random.Random(seed)
+        self.dcs = list(dcs)
+        self.keys = [f"k{i}" for i in range(keys)]
+        self.elems = [f"e{i}" for i in range(elems)]
+        self.clock = {d: 0 for d in self.dcs}
+        #: per-DC view of per-key orset state: elem -> set of dots
+        self.state = {d: {k: {} for k in self.keys} for d in self.dcs}
+        self.t = 1000
+
+    def _tick(self, dc):
+        self.t += self.rng.randint(1, 5)
+        self.clock[dc] = self.t
+        return self.t
+
+    def next_op(self, type_name, key=None):
+        """One committed op of ``type_name`` on ``key`` (None: a key
+        drawn at random), applied to every DC's view."""
+        dc = self.rng.choice(self.dcs)
+        if key is None:
+            key = self.rng.choice(self.keys)
+        ss = VC({d: t for d, t in self.clock.items() if t})
+        ct = self._tick(dc)
+        cls = get_type(type_name)
+        st = self.state[dc][key]
+        if type_name == "counter_pn":
+            eff = self.rng.randint(-5, 5)
+        elif type_name == "set_aw":
+            if st and self.rng.random() < 0.4:
+                e = self.rng.choice(sorted(st))
+                eff = ("rmv", ((e, tuple(sorted(st[e]))),))
+            else:
+                e = self.rng.choice(self.elems)
+                dot = (dc, ct)
+                eff = ("add", ((e, dot, tuple(sorted(st.get(e, ())))),))
+        elif type_name == "register_mv":
+            st = st if isinstance(st, frozenset) else frozenset()
+            observed = tuple(sorted(d_ for d_, _v in st))
+            if st and self.rng.random() < 0.15:
+                eff = ("reset", observed)
+            else:
+                eff = ("asgn", self.rng.choice(self.elems), (dc, ct),
+                       observed)
+        elif type_name == "flag_ew":
+            st = st if isinstance(st, frozenset) else frozenset()
+            observed = tuple(sorted(st))
+            if self.rng.random() < 0.4:
+                eff = ("dis", observed)
+            else:
+                eff = ("en", (dc, ct), observed)
+        elif type_name == "register_lww":
+            # coarse ts buckets force ties so the tiebreak path runs
+            eff = (ct // 8, (dc, ct), self.rng.choice(self.elems))
+        elif type_name == "set_rw":
+            st = st if isinstance(st, dict) else {}
+            r = self.rng.random()
+            if st and r < 0.15:
+                eff = ("reset", tuple(
+                    (e, tuple(sorted(a)), tuple(sorted(rm)))
+                    for e, (a, rm) in sorted(st.items())))
+            elif r < 0.55:
+                e = self.rng.choice(self.elems)
+                obs_rmvs = tuple(sorted(st.get(e, ((), ()))[1]))
+                eff = ("add", ((e, (dc, ct), obs_rmvs),))
+            else:
+                e = self.rng.choice(self.elems)
+                obs_adds = tuple(sorted(st.get(e, ((), ()))[0]))
+                eff = ("rmv", ((e, (dc, ct), obs_adds),))
+        elif type_name == "flag_dw":
+            en, dis = st if isinstance(st, tuple) else cls.new()
+            r = self.rng.random()
+            if r < 0.15:
+                eff = ("reset", tuple(sorted(en)), tuple(sorted(dis)))
+            elif r < 0.6:
+                eff = ("en", (dc, ct), tuple(sorted(dis)))
+            else:
+                eff = ("dis", (dc, ct), tuple(sorted(en)))
+        elif type_name == "set_go":
+            n = self.rng.randint(1, 3)
+            eff = tuple(self.rng.choice(self.elems) for _ in range(n))
+        elif type_name == "rga":
+            st = st if isinstance(st, tuple) else ()
+            ctx = DownstreamCtx(dc)
+            vis = sum(1 for _u, _e, v in st if v)
+            if vis and self.rng.random() < 0.3:
+                eff = cls.downstream(
+                    ("remove", self.rng.randint(1, vis)), st, ctx)
+            else:
+                pos = self.rng.randint(0, vis)
+                eff = cls.downstream(
+                    ("add_right", (pos, self.rng.choice(self.elems))),
+                    st, ctx)
+        elif type_name in ("map_go", "map_rr"):
+            # nested effects via the real CRDT downstream so dots come
+            # out as (dc, ct) like every other generator arm
+            st = st if isinstance(st, dict) else {}
+            ctx = DownstreamCtx(dc, seq=ct - 1)
+            if type_name == "map_go":
+                fields = [("hits", "counter_pn"), ("tags", "set_aw"),
+                          ("on", "flag_ew")]
+            else:
+                fields = [("tags", "set_aw"), ("who", "register_mv"),
+                          ("on", "flag_dw")]
+            r = self.rng.random()
+            if type_name == "map_rr" and st and r < 0.15:
+                kt = self.rng.choice(sorted(st.keys()))
+                eff = cls.downstream(("remove", kt), st, ctx)
+            else:
+                f = self.rng.choice(fields)
+                if f[1] == "counter_pn":
+                    nop = ("increment", self.rng.randint(1, 4))
+                elif f[1] == "set_aw":
+                    nop = (self.rng.choice(["add", "remove"]),
+                           self.rng.choice(self.elems))
+                elif f[1] == "register_mv":
+                    nop = ("assign", self.rng.choice(self.elems))
+                else:  # flags
+                    nop = (self.rng.choice(["enable", "disable"]), ())
+                eff = cls.downstream(("update", (f, nop)), st, ctx)
+        else:
+            raise AssertionError(type_name)
+        p = Payload(key=key, type_name=type_name, effect=eff,
+                    commit_dc=dc, commit_time=ct, snapshot_vc=ss,
+                    txid=f"tx{ct}")
+        # apply to every DC view (causal delivery simulated as immediate)
+        stateful = ("set_aw", "set_rw", "set_go", "register_mv",
+                    "flag_ew", "flag_dw", "map_go", "map_rr", "rga")
+        for d in self.dcs:
+            if type_name in stateful:
+                base = self.state[d][key]
+                dict_state = ("set_aw", "set_rw", "map_go", "map_rr")
+                if type_name not in dict_state and not \
+                        isinstance(base, (frozenset, tuple)):
+                    base = cls.new()
+                self.state[d][key] = cls.update(eff, base)
+            self.clock[d] = max(self.clock[d], ct)
+        return p
+
+    def snapshot(self):
+        return VC(dict(self.clock))

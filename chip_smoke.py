@@ -64,23 +64,50 @@ and nvcc.  Phases, each of which fails the run on any error or mismatch:
    the merge run once more under the sync check, and the timed steps
    once more under torch.profiler for the card's busy share.
 
+9. the live device plane (mat/device_plane.py, ``PLANE``) at one
+   partition of a 1,000,000-key store on the reference's 16-partition
+   ring: a ``DevicePlane`` on the card holding 65,536 keys of each of
+   set_aw and counter_pn (config 6's mix), fed the seeded multi-DC
+   stream ``synth.StreamGen`` through ``DevicePlane.stage`` with a
+   stable VC 256 ops behind.  An untimed fill touches every key (the
+   key directory grows from 1,024 to 65,536), then timed rounds each
+   stage 2,048 ops, run one ``gc``, 16 ``read_many`` of 64 keys at the
+   latest snapshot, one ``read_many`` and one ``read`` at an explicit
+   snapshot and one cross-type ``fused_read`` of the capture closures.
+   Checks: every key of both types at the latest and at the last
+   round's explicit snapshot reads what the port's CRDTs (the host
+   oracle) give; a 4,096-key run of the same recipe on the card equals
+   it on the CPU (state tensors, directories, reads); under
+   ``torch.cuda.set_sync_debug_mode("warn")`` each round waits for the
+   card exactly once a flush chunk (its overflow read) and once a read;
+   ``fused_read`` counts one read dispatch and returns what the separate
+   reads return; no op overflows and no key is evicted.  No kernel of
+   csrc/ lies on this path (the plane is int64 and folds with the plain
+   store functions, as the JAX plane does).
+
 The line before the last carries the nvidia-smi reading, the ones before
-it the ``kernels`` and ``types`` JSON objects; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
+it the ``kernels``, ``plane`` and ``types`` JSON objects; the last line
+is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
 """
 
 import json
+import random
 import subprocess
 import sys
 import time
+import warnings
+from collections import deque
 from contextlib import contextmanager, nullcontext
 from dataclasses import fields, replace
 
 import numpy as np
 import torch
 
-from antidote_tpu_torch import _cuda, entry
+from antidote_tpu_torch import _cuda, entry, stats
+from antidote_tpu_torch.config import Config
+from antidote_tpu_torch.crdt import get_type
+from antidote_tpu_torch.mat import device_plane
 from antidote_tpu_torch.mat import gpu_kernels as gk
 from antidote_tpu_torch.mat import (ingest, rga_kernel, rga_store, store,
                                     synth)
@@ -134,6 +161,22 @@ RGA = dict(n_base=100_000, build_block=4_096, block=1_024, steps=8,
 RGA_LATEST = np.iinfo(np.int64).max // 2
 MERGE_ARGS = ("ins_lamport", "ins_actor", "ref_lamport", "ref_actor", "elem",
               "valid", "del_lamport", "del_actor", "del_valid")
+#: the plane phase: one partition of BASELINE config 2's 1,000,000 keys
+#: on the reference's production ring of 16 partitions, with config 6's
+#: two types.  The fill touches every key once (seeded shuffled order),
+#: then draws the rest at random up to ``ops_per_key``; each timed round
+#: stages ``round_ops`` ops (half of each type), runs one GC, ``reads``
+#: read_many calls of ``read_keys`` keys at the latest snapshot, one
+#: read_many and one read at the snapshot ``snap_back`` ops before the
+#: round's end, and one fused_read.  The stable VC lags ``lag_ops`` ops.
+PLANE = dict(keys=65_536, dcs=("dc1", "dc2", "dc3"), elems=8,
+             ops_per_key={"set_aw": 4.0, "counter_pn": 1.5}, rounds=8,
+             round_ops=2_048, reads=16, read_keys=64, lag_ops=256,
+             snap_back=128, prefix_keys=4_096, prefix_rounds=2,
+             source="BASELINE config 2's 1,000,000 keys over the "
+                    "reference's 16-partition ring (config/vars.config:5, "
+                    "BASELINE.md:26); config 6's counters and add-wins "
+                    "sets; Config's device_* defaults")
 TYPE_WARMUP, TYPE_STEPS = 2, 8
 SMALL_K, SMALL_B, SMALL_ROUNDS = 4_096, 8_192, 6
 SMALL_INGEST_K, SMALL_INGEST_ROWS = 512, 4_096
@@ -1043,6 +1086,325 @@ def phase_rga(device):
     return row
 
 
+#: where the plane phase's counted waits came from: (file, line) -> count
+WAIT_SITES = {}
+#: the sync debug mode's warning at each wait (the mode's first switch
+#: in a process also warns once that it is a prototype: not a wait)
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+@contextmanager
+def count_waits(box):
+    """Counts the host's waits for the card inside (the sync debug
+    mode's warnings), adding them to ``box[0]`` and their Python call
+    sites to ``WAIT_SITES``."""
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in got:
+        if SYNC_WARNING in str(w.message):
+            box[0] += 1
+            site = (w.filename.rsplit("/", 3)[-1], w.lineno)
+            WAIT_SITES[site] = WAIT_SITES.get(site, 0) + 1
+
+
+class PlaneStream:
+    """The plane phase's traffic: ``synth.StreamGen`` over ``n_keys``
+    keys, its ops staged with a stable VC ``lag_ops`` ops behind, and
+    the host oracle (the port's CRDTs applied to every effect; the
+    generator keeps set_aw's, this keeps counter_pn's)."""
+
+    def __init__(self, shp, n_keys, seed=0):
+        self.shp = shp
+        self.gen = synth.StreamGen(seed, dcs=shp["dcs"], keys=n_keys,
+                                   elems=shp["elems"])
+        self.rng = random.Random(seed + 1)
+        self.types = tuple(shp["ops_per_key"])
+        self.counter = {}
+        self.hist = deque(maxlen=shp["lag_ops"] + 1)
+
+    def op(self, tn, key=None):
+        """(type, payload, stable VC) of the next op."""
+        p = self.gen.next_op(tn, key)
+        if tn == "counter_pn":
+            self.counter[p.key] = self.counter.get(p.key, 0) + p.effect
+        self.hist.append(self.gen.snapshot())
+        return tn, p, self.hist[0]
+
+    def fill(self):
+        """Every key of every type once (each type's keys in a seeded
+        shuffled order, the types interleaved), then the rest of
+        ``ops_per_key`` drawn at random."""
+        firsts = []
+        for tn in self.types:
+            ks = list(self.gen.keys)
+            self.rng.shuffle(ks)
+            firsts.append([(tn, k) for k in ks])
+        plan = [x for pair in zip(*firsts) for x in pair]
+        rest = [tn for tn in self.types for _ in range(
+            round(self.shp["ops_per_key"][tn] * len(self.gen.keys))
+            - len(self.gen.keys))]
+        self.rng.shuffle(rest)
+        for tn, key in plan:
+            yield self.op(tn, key)
+        for tn in rest:
+            yield self.op(tn)
+
+    def round(self):
+        """One round's ops, generated ahead, and its explicit snapshot
+        with the oracle states at it."""
+        half = self.shp["round_ops"] // len(self.types)
+        kinds = [tn for tn in self.types for _ in range(half)]
+        self.rng.shuffle(kinds)
+        ops, snap = [], None
+        for i, tn in enumerate(kinds):
+            ops.append(self.op(tn))
+            if i == len(kinds) - self.shp["snap_back"] - 1:
+                snap = (self.gen.snapshot(), self.oracle())
+        return ops, snap
+
+    def oracle(self):
+        """{type: {key: host state}} now (copies of the dicts; the CRDT
+        states in them are immutable)."""
+        return {"set_aw": dict(self.gen.state[self.shp["dcs"][0]]),
+                "counter_pn": dict(self.counter)}
+
+    def sample(self, n):
+        return self.rng.sample(self.gen.keys, n)
+
+
+def plane_tensors(dp, types):
+    """Every state tensor of the given type planes, on the CPU."""
+    return tuple(getattr(dp.planes[tn].st, f.name).cpu() for tn in types
+                 for f in fields(dp.planes[tn].st)
+                 if f.name != "n_lanes")
+
+
+def plane_directory(dp, types):
+    return [(p.key_index, p.rev_keys, getattr(p, "rev_elems", None),
+             p.domain.dc_ids, p.capacity, p._base_vc)
+            for p in (dp.planes[tn] for tn in types)]
+
+
+def check_oracle(what, dp, stream, oracle, vc):
+    """Every key of every type read at ``vc`` (one read_many a type)
+    has the oracle's value.  Returns {type: the read's seconds}."""
+    secs = {}
+    for tn in stream.types:
+        cls = get_type(tn)
+        t0 = time.perf_counter()
+        got = dp.read_many(list(stream.gen.keys), tn, vc)
+        secs[tn] = time.perf_counter() - t0
+        bad = [k for k in stream.gen.keys
+               if k not in got or cls.value(got[k]) != cls.value(
+                   oracle[tn].get(k, cls.new()))]
+        if bad:
+            fail(f"[plane] {what}: {len(bad)} {tn} keys differ from the "
+                 f"host oracle, first {bad[0]!r}")
+    return secs
+
+
+def plane_run(device, n_keys, rounds, measure):
+    """The plane phase's traffic over ``n_keys`` keys through a
+    DevicePlane on ``device``: the fill, then ``rounds`` rounds.  With
+    ``measure`` (on the card) each round runs under the wait count with
+    its times taken.  Returns (plane, stream, evictions, stats)."""
+    shp = PLANE
+    # Config's defaults, but for the coalescing window: with one thread
+    # staging as fast as it can, the window would cut flushes by the
+    # host's speed; the phase asks for the flush_ops threshold
+    dp = device_plane.DevicePlane(config=Config(mat_coalesce_us=0),
+                                  device=device)
+    evicted = []
+    dp.set_evict_handler(lambda k, t, s=None: evicted.append((k, t)))
+    stream = PlaneStream(shp, n_keys)
+    types = stream.types
+    cap0 = {tn: dp.planes[tn].capacity for tn in types}
+    t0 = time.perf_counter()
+    for tn, p, stable in stream.fill():
+        dp.stage(p.key, tn, p, stable)
+    dp.gc(stream.hist[0])         # the rounds start from a fresh GC count
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    m = dict(fill_s=time.perf_counter() - t0,
+             fill_ops=len(stream.gen.keys) * sum(
+                 shp["ops_per_key"].values()),
+             grows={tn: (dp.planes[tn].capacity // cap0[tn]).bit_length() - 1
+                    for tn in types})
+    if measure:
+        flush_s, gc_ev = [], {tn: [] for tn in types}
+        for tn in types:
+            pl = dp.planes[tn]
+
+            def timed_flush(kind="explicit", _o=pl.flush, _pl=pl):
+                if not _pl.rows:
+                    return _o(kind)
+                h = time.perf_counter()
+                _o(kind)
+                flush_s.append(time.perf_counter() - h)
+
+            def timed_gc(vc, _o=pl.gc, _tn=tn):
+                e = events()
+                e[0].record()
+                _o(vc)
+                e[1].record()
+                gc_ev[_tn].append(e)
+
+            pl.flush, pl.gc = timed_flush, timed_gc
+        torch.cuda.reset_peak_memory_stats()
+    reg = stats.registry
+    waits = dict(stage=[0], gc=[0], read=[0])
+    stage_s = read_many_s = fused_s = 0.0
+    chunks = gc_chunks = n_reads = 0
+    reads, snap = [], None
+    for _ in range(rounds):
+        ops, snap = stream.round()
+        keysets = [stream.sample(shp["read_keys"])
+                   for _ in range(shp["reads"] + 1)]
+        wc = (lambda k: count_waits(waits[k])) if measure else \
+            (lambda k: nullcontext())
+        d0 = reg.ingest_dispatches.value()
+        h = time.perf_counter()
+        with wc("stage"):
+            for tn, p, stable in ops:
+                dp.stage(p.key, tn, p, stable)
+        if cuda:
+            torch.cuda.synchronize()
+        stage_s += time.perf_counter() - h
+        d1 = reg.ingest_dispatches.value()
+        with wc("gc"):
+            dp.gc(ops[-1][2])
+        d2 = reg.ingest_dispatches.value()
+        chunks, gc_chunks = chunks + d1 - d0, gc_chunks + d2 - d1
+        with wc("read"):
+            h = time.perf_counter()
+            for i, ks in enumerate(keysets[:shp["reads"]]):
+                reads.append(dp.read_many(ks, types[i % len(types)], None))
+            read_many_s += time.perf_counter() - h
+            reads.append(dp.read_many(keysets[-1], types[0], snap[0]))
+            reads.append(dp.read(keysets[-1][0], types[1], snap[0]))
+            h = time.perf_counter()
+            caps = [dp.planes[tn].read_many_begin(keysets[0], None)
+                    for tn in types]
+            n0 = device_plane.read_dispatch_count()
+            fused = device_plane.fused_read([c.split for c in caps])
+            fused_s += time.perf_counter() - h
+        n_reads += shp["reads"] + 3
+        if device_plane.read_dispatch_count() != n0 + 1:
+            fail("[plane] fused_read counted other than one dispatch")
+        if fused != [dp.read_many(keysets[0], tn, None) for tn in types]:
+            fail("[plane] fused_read differs from the separate reads")
+        reads += fused
+    if cuda:
+        torch.cuda.synchronize()
+    m.update(rounds=rounds, round_ops=shp["round_ops"], chunks=chunks,
+             gc_chunks=gc_chunks, n_reads=n_reads, snap=snap,
+             staged_ops_per_s=rounds * shp["round_ops"] / stage_s,
+             read_many_64_ms=read_many_s * 1e3 / (rounds * shp["reads"]),
+             fused_read_ms=fused_s * 1e3 / rounds, reads=reads,
+             waits={k: v[0] for k, v in waits.items()})
+    if measure:
+        m.update(peak=torch.cuda.max_memory_allocated(),
+                 flush_ms=float(np.median(flush_s)) * 1e3,
+                 n_flushes=len(flush_s),
+                 gc_ms={tn: mean_ms(e) for tn, e in gc_ev.items()})
+    return dp, stream, evicted, m
+
+
+def phase_plane(device):
+    """Phase 9: the live device plane at one partition of a 1M-key ring
+    (``PLANE``), with its checks.  Returns its summary row."""
+    shp = PLANE
+    types = tuple(shp["ops_per_key"])
+    dp, stream, evicted, m = plane_run(device, shp["keys"], shp["rounds"],
+                                       measure=True)
+    print("[plane] measured " + json.dumps({
+        k: v for k, v in m.items() if k not in ("reads", "snap")}),
+        flush=True)
+    if evicted:
+        fail(f"[plane] {len(evicted)} keys evicted, first {evicted[0]}")
+    want = m["chunks"] + m["n_reads"]
+    got = m["waits"]["stage"] + m["waits"]["read"]
+    if got != want or m["waits"]["gc"] != m["gc_chunks"]:
+        fail(f"[plane] waits {m['waits']}: expected {m['chunks']} in the "
+             f"stages (one a flush chunk), {m['gc_chunks']} in the GCs and "
+             f"{m['n_reads']} in the reads; by site {WAIT_SITES}")
+    if m["waits"]["read"] != m["n_reads"]:
+        fail(f"[plane] {m['waits']['read']} waits in {m['n_reads']} reads")
+    st = dp.planes["set_aw"].st
+    if tuple(st.ops.shape) != (shp["keys"] * 8, 22) or \
+            st.ops.dtype != torch.int64 or st.ops.device.type != "cuda":
+        fail(f"[plane] set_aw ring {tuple(st.ops.shape)} {st.ops.dtype} "
+             f"on {st.ops.device}")
+    t0 = time.perf_counter()
+    read_all = check_oracle("latest", dp, stream, stream.oracle(), None)
+    snap_vc, snap_oracle = m["snap"]
+    check_oracle("explicit snapshot", dp, stream, snap_oracle, snap_vc)
+    oracle_s = time.perf_counter() - t0
+    ring_bytes = {tn: nbytes(dp.planes[tn].st.ops) for tn in types}
+    del dp, stream
+    torch.cuda.empty_cache()
+
+    # the card against the CPU: a 4,096-key run of the same recipe
+    t0 = time.perf_counter()
+    runs = [plane_run(dev, shp["prefix_keys"], shp["prefix_rounds"],
+                      measure=False)
+            for dev in (device, torch.device("cpu"))]
+    (dpc, sc, evc, mc), (dph, sh, evh, mh) = runs
+    same_or_fail("[plane] state tensors, card against CPU",
+                 plane_tensors(dpc, types), plane_tensors(dph, types))
+    if plane_directory(dpc, types) != plane_directory(dph, types) or \
+            mc["reads"] != mh["reads"] or evc != evh:
+        fail("[plane] directories, reads or evictions differ, card "
+             "against CPU")
+    for tn in types:
+        ks = list(sc.gen.keys)
+        if dpc.read_many(ks, tn, None) != dph.read_many(ks, tn, None):
+            fail(f"[plane] {tn} reads differ, card against CPU")
+    card_vs_cpu_s = time.perf_counter() - t0
+
+    rounds, ops = m["rounds"], m["rounds"] * m["round_ops"]
+    row = {
+        "type": "plane", "source": shp["source"], "keys_per_type":
+        shp["keys"], "types": list(types), "dcs": len(shp["dcs"]),
+        "elems": shp["elems"], "ops_per_key": shp["ops_per_key"],
+        "lanes": 8, "slots": 8, "flush_ops": 256, "gc_ops": 2048,
+        "coalesce_us": 0, "rounds": rounds, "round_ops": m["round_ops"],
+        "fill_ops": m["fill_ops"], "fill_s": m["fill_s"],
+        "staged_ops_per_s": m["staged_ops_per_s"],
+        "flush_ms_median": m["flush_ms"], "flushes": m["n_flushes"],
+        "gc_ms": m["gc_ms"], "read_many_64_ms": m["read_many_64_ms"],
+        "read_many_all_ms": {tn: s * 1e3 for tn, s in read_all.items()},
+        "fused_read_ms": m["fused_read_ms"],
+        "waits": m["waits"], "flush_chunks": m["chunks"] + m["gc_chunks"],
+        "reads": m["n_reads"],
+        "waits_per_flush_chunk": (m["waits"]["stage"] + m["waits"]["gc"])
+        / (m["chunks"] + m["gc_chunks"]),
+        "waits_per_read": m["waits"]["read"] / m["n_reads"],
+        "max_memory_allocated": m["peak"], "ring_bytes": ring_bytes,
+        "grows": m["grows"], "evictions": len(evicted),
+        "checks": {"oracle_keys": 2 * len(types) * shp["keys"],
+                   "oracle_s": oracle_s, "card_vs_cpu_keys":
+                   shp["prefix_keys"], "card_vs_cpu_s": card_vs_cpu_s},
+    }
+    print(f"[plane] {shp['keys']} keys x {list(types)}: fill "
+          f"{m['fill_ops']:.0f} ops in {m['fill_s']:.1f} s; {rounds} rounds "
+          f"of {m['round_ops']} ops: {row['staged_ops_per_s']:.0f} staged "
+          f"ops/s, flush {m['flush_ms']:.3f} ms (median of "
+          f"{m['n_flushes']}), GC {m['gc_ms']} ms, read_many of 64 "
+          f"{m['read_many_64_ms']:.3f} ms, of all {row['read_many_all_ms']} "
+          f"ms, fused_read {m['fused_read_ms']:.3f} ms; waits {m['waits']} "
+          f"for {row['flush_chunks']} flush chunks and {m['n_reads']} reads; "
+          f"peak {m['peak']} B; grows {m['grows']}; 0 evicted; oracle, "
+          f"card = CPU and fused_read checks held", flush=True)
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1076,7 +1438,9 @@ def main():
     types = [phase_type(t, device) for t in TYPE_SHAPES]
     types += phase_ingest(device)
     types.append(phase_rga(device))
+    plane = phase_plane(device)
     print(json.dumps({"types": types}))
+    print(json.dumps({"plane": plane}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

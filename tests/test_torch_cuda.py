@@ -1,8 +1,10 @@
 """Card-only tests of the port: each CUDA kernel against its plain
 version on the card, the superstep, every shard type's store, the packed
-ingest plane and the RGA merge and store on the card against the same
-calls on the CPU, the appends, purges, RGA reads and folds that must
-never wait for the card, and the wrappers' refusals.  Every test here
+ingest plane, the RGA merge and store and the live device plane of every
+CRDT type on the card against the same calls on the CPU, the appends,
+purges, RGA reads and folds that must never wait for the card, the
+device plane's waits (one a flush chunk, one a read), and the wrappers'
+refusals.  Every test here
 skips where no CUDA device is present.
 
 The file imports nothing of JAX, so it also runs where JAX is not
@@ -11,6 +13,8 @@ installed (``--noconftest`` skips tests/conftest.py, which imports it):
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
 
+import warnings
+from contextlib import contextmanager
 from dataclasses import fields
 
 import numpy as np
@@ -18,8 +22,10 @@ import pytest
 import torch
 
 from antidote_tpu_torch import entry
-from antidote_tpu_torch.mat import (gpu_kernels, ingest, rga_kernel,
-                                    rga_store, store, synth)
+from antidote_tpu_torch import stats
+from antidote_tpu_torch.clocks import VC
+from antidote_tpu_torch.mat import (device_plane, gpu_kernels, ingest,
+                                    rga_kernel, rga_store, store, synth)
 
 DTYPES = [torch.int32, torch.int64]
 
@@ -298,3 +304,130 @@ def test_rga_append_read_fold_never_wait_for_the_card(cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     assert bool(ok) and int(n) == 200 and int(st.wn) == sum(
         len(ins[0]) for ins, _dl, _hi in blocks[:3]) - 200
+
+
+PLANE_TYPES = ["counter_pn", "set_aw", "register_mv", "register_lww",
+               "flag_ew", "set_rw", "flag_dw", "set_go", "map_go", "map_rr",
+               "rga"]
+
+
+def _plane(device, **kw):
+    kw = {**dict(key_capacity=4, n_lanes=8, n_slots=2, flush_ops=16,
+                 gc_ops=48), **kw}
+    return device_plane.DevicePlane(
+        device=device, ingest_settings=ingest.IngestSettings(coalesce_us=0),
+        **kw)
+
+
+def _stable(gen, lag=12):
+    return VC({d: max(t - lag, 0) for d, t in gen.clock.items()})
+
+
+def _plane_run(device, type_name):
+    """A short seeded stream of ``type_name`` through a DevicePlane on
+    ``device`` (keys, slots and DCs grow; unlogged, so evictions export):
+    reads at the latest, at the newest and at an older snapshot, before
+    and after a GC, every eviction, and the state tensors on the CPU."""
+    gen = synth.StreamGen(seed=7, dcs=tuple(f"dc{i}" for i in range(9)))
+    dp = _plane(device)
+    evicted = []
+    dp.set_evict_handler(lambda k, t, s=None: evicted.append((k, t, s)),
+                         True)
+    snaps = []
+    for i in range(200):
+        p = gen.next_op(type_name)
+        dp.stage(p.key, type_name, p, _stable(gen))
+        if i % 37 == 0:
+            snaps.append(gen.snapshot())
+    reads = []
+    for when in ("before", "after"):
+        for rv in (None, gen.snapshot(), snaps[-1]):
+            try:
+                reads.append(dp.read_many(list(gen.keys), type_name, rv))
+            except device_plane.ReadBelowBase:
+                reads.append("below base")
+        dp.gc(gen.snapshot())
+    tensors = []
+    for p in dp.planes.values():
+        for sub in (p._all_planes() if hasattr(p, "_subs") else [p]):
+            sts = sub.st.values() if isinstance(sub.st, dict) else [sub.st]
+            tensors += [getattr(st, f.name).cpu() for st in sts
+                        for f in fields(st)
+                        if isinstance(getattr(st, f.name), torch.Tensor)]
+    return reads, evicted, tensors
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("type_name", PLANE_TYPES)
+def test_plane_on_card_matches_cpu(cuda_device, type_name):
+    card = _plane_run(cuda_device, type_name)
+    cpu = _plane_run(torch.device("cpu"), type_name)
+    assert card[0] == cpu[0] and card[1] == cpu[1]
+    assert len(card[2]) == len(cpu[2])
+    for a, b in zip(card[2], cpu[2]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@contextmanager
+def _waits():
+    """Counts the host's waits for the card inside (the sync debug
+    mode's warnings; its first switch in a process also warns once that
+    it is a prototype, which is no wait) into the yielded list's first
+    item, their Python call sites into its second."""
+    box = [0, []]
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield box
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = [(w.filename.rsplit("/", 3)[-1], w.lineno) for w in got
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    box[:] = [len(sites), sites]
+
+
+@pytest.mark.cuda
+def test_plane_waits_once_a_flush_chunk_and_a_read(cuda_device):
+    gen = synth.StreamGen(seed=3, keys=40, elems=8)
+    dp = _plane(cuda_device, key_capacity=64, n_slots=8, flush_ops=64,
+                gc_ops=1 << 20)
+    types = ("set_aw", "counter_pn")
+    for key in gen.keys:               # every key and DC in the directory
+        for tn in types:
+            dp.stage(key, tn, gen.next_op(tn, key), _stable(gen))
+    dp.flush()
+    dp.gc(_stable(gen))
+    reg = stats.registry
+    with _waits() as w:                 # below the flush threshold
+        for _ in range(50):
+            p = gen.next_op("set_aw")
+            dp.stage(p.key, "set_aw", p, _stable(gen))
+    assert w[0] == 0 and dp.pending() == 50, w
+    d0 = reg.ingest_dispatches.value()
+    with _waits() as w:                 # 3 flushes of 64 in the stream
+        for _ in range(150):
+            for tn in types:
+                p = gen.next_op(tn)
+                dp.stage(p.key, tn, p, _stable(gen))
+    chunks = reg.ingest_dispatches.value() - d0
+    assert chunks >= 4 and w[0] == chunks, (chunks, w)
+    d0 = reg.ingest_dispatches.value()
+    with _waits() as w:                 # the GC's flushes, then folds
+        dp.gc(_stable(gen))
+    assert w[0] == reg.ingest_dispatches.value() - d0, w
+    with _waits() as w:
+        dp.read_many(list(gen.keys), "set_aw", None)
+    assert w[0] == 1, w
+    with _waits() as w:
+        dp.read(gen.keys[0], "counter_pn", gen.snapshot())
+    assert w[0] == 1, w
+    caps = [dp.planes[tn].read_many_begin(list(gen.keys), rv)
+            for tn in types for rv in (None, gen.snapshot())]
+    n0 = device_plane.read_dispatch_count()
+    with _waits() as w:
+        fused = device_plane.fused_read([c.split for c in caps])
+    assert w[0] == 1 and device_plane.read_dispatch_count() == n0 + 1, w
+    assert fused == [c() for c in caps]
+    assert all(c.device.type == "cuda" for c in caps)

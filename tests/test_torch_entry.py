@@ -16,7 +16,8 @@ import torch_parity as tp
 from antidote_tpu.clocks import dense as jdense
 from antidote_tpu.mat import store as jstore
 from antidote_tpu_torch import entry
-from antidote_tpu_torch.mat import convert, rga_store, store
+from antidote_tpu_torch.mat import (convert, device_plane, rga_store,
+                                    store)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -87,7 +88,11 @@ def test_import_leaves_jax_out():
             "antidote_tpu_torch.mat.convert, antidote_tpu_torch._cuda, "
             "antidote_tpu_torch.mat.ingest, antidote_tpu_torch.mat.synth, "
             "antidote_tpu_torch.mat.rga_kernel, "
-            "antidote_tpu_torch.mat.rga_store; "
+            "antidote_tpu_torch.mat.rga_store, "
+            "antidote_tpu_torch.mat.device_plane, "
+            "antidote_tpu_torch.mat.materializer, antidote_tpu_torch.crdt, "
+            "antidote_tpu_torch.config, antidote_tpu_torch.stats, "
+            "antidote_tpu_torch.obs.prof; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'antidote_tpu.')) or "
             "m == 'antidote_tpu']; print(bad); sys.exit(1 if bad else 0)")
@@ -111,6 +116,7 @@ def test_import_leaves_jax_out():
     lambda: store.rwset_shard_init(4, 8, 8, 8),
     lambda: store.setgo_shard_init(4, 8, 8, 8),
     lambda: rga_store.rga_store_init(16, 16, 8),
+    lambda: device_plane.DevicePlane(),
 ])
 def test_no_device_raises_without_a_card(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

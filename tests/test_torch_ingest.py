@@ -144,3 +144,45 @@ def test_packed_overflow_reported():
     st, ov = ingest.packed_append(st, torch.from_numpy(packed))
     assert ov[:3].tolist() == [False, False, True]
     assert int(st.count[0]) == 2
+
+
+def _ingest_counters(reg):
+    return ([reg.ingest_flushes.value(kind=k)
+             for k in jingest.INGEST_FLUSH_KINDS]
+            + [reg.ingest_dispatches.value(), reg.ingest_coalesced_ops.value(),
+               reg.ingest_h2d_bytes.value()])
+
+
+def test_counters_move_as_in_jax():
+    """note_flush, note_dispatch and the RGA coalesced append's dispatch
+    move the stats registry's INGEST_* counters as the JAX package's
+    move its own, for the same calls."""
+    from antidote_tpu import stats as jstats
+    from antidote_tpu.mat import rga_store as jrga
+    from antidote_tpu_torch import stats as tstats
+    from antidote_tpu_torch.mat import rga_store as trga
+
+    assert ingest.INGEST_FLUSH_KINDS == jingest.INGEST_FLUSH_KINDS
+    before = [_ingest_counters(r) for r in (jstats.registry, tstats.registry)]
+    for mod in (jingest, ingest):
+        for kind in ingest.INGEST_FLUSH_KINDS[::-1] + ("rows", "gc"):
+            mod.note_flush(kind)
+        mod.note_dispatch(17, 4096)
+        mod.note_dispatch(3, 512, replicas=4)
+    ins = (np.arange(1, 6, dtype=np.int32), np.ones(5, np.int32),
+           np.zeros(5, np.int32), np.zeros(5, np.int32),
+           np.arange(5, dtype=np.int32), np.zeros(5, np.int32),
+           np.arange(1, 6, dtype=np.int64), np.zeros((5, 1), np.int64))
+    dels = (np.asarray([2], np.int32), np.ones(1, np.int32),
+            np.zeros(1, np.int32), np.asarray([6], np.int64),
+            np.zeros((1, 1), np.int64))
+    jrga.rga_append_coalesced(jrga.rga_store_init(64, 64, 64), ins, dels)
+    trga.rga_append_coalesced(trga.rga_store_init(64, 64, 64, device="cpu"),
+                              ins, dels)
+    after = [_ingest_counters(r) for r in (jstats.registry, tstats.registry)]
+    moved = [[a - b for a, b in zip(x, y)] for x, y in zip(after, before)]
+    assert moved[1] == moved[0]
+    assert moved[1][len(ingest.INGEST_FLUSH_KINDS)] == 3   # dispatches
+    reg = tstats.registry
+    assert reg.ingest_ops_per_dispatch.value() == \
+        reg.ingest_coalesced_ops.value() / reg.ingest_dispatches.value()

@@ -1,7 +1,7 @@
 """Shared inputs for the parity tests of antidote_tpu_torch against
 antidote_tpu (tests/test_torch_*.py): seeded synth batches of every shard
-type driven through the JAX store, and the same state carried across to
-the port."""
+type driven through the JAX store, the same state carried across to the
+port, and seeded committed-op streams for the device planes."""
 
 from dataclasses import fields
 
@@ -9,10 +9,13 @@ import numpy as np
 import jax.numpy as jnp
 import torch
 
+from antidote_tpu.clocks import VC as JVC
 from antidote_tpu.mat import store as jstore
+from antidote_tpu.mat.materializer import Payload as JPayload
 from antidote_tpu.mat.synth import orset_batch
 from antidote_tpu_torch.mat import store as tstore
 from antidote_tpu_torch.mat import synth as tsynth
+from antidote_tpu_torch.mat.synth import StreamGen  # noqa: F401
 from antidote_tpu_torch.mat.convert import state_from_numpy
 
 L, E, D, N_DCS = 8, 8, 8, 3
@@ -181,3 +184,22 @@ def merge_fields(inserts, deletes, pad=0, del_pad=0):
         f["del_lamport"][i], f["del_actor"][i] = lam, act
         f["del_valid"][i] = True
     return f
+
+
+# ---------------------------------------------------------------------------
+# device plane streams: synth.StreamGen (a copy of
+# tests/device/test_device_plane.py's generator on the port's own CRDTs,
+# clocks and payloads); the parity tests convert each payload to the JAX
+# package's with jax_payload
+
+
+def jax_payload(p):
+    """The port's Payload ``p`` as the JAX package's (its VC too)."""
+    return JPayload(key=p.key, type_name=p.type_name, effect=p.effect,
+                    commit_dc=p.commit_dc, commit_time=p.commit_time,
+                    snapshot_vc=JVC(dict(p.snapshot_vc)), txid=p.txid,
+                    certified=p.certified)
+
+
+def jax_vc(vc):
+    return None if vc is None else JVC(dict(vc))
