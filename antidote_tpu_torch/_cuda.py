@@ -1,12 +1,13 @@
-"""Build and bind the port's hand-written CUDA kernels
-(``csrc/orset_kernels.cu``).
+"""Build and bind the port's hand-written CUDA kernels (every
+``csrc/*.cu``: the OR-Set kernels and the dependency gate's fixpoint).
 
-The source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, at first use, into ``_cuda_build/`` beside
-this file, and loaded with ``ctypes``.  The library's name carries a
-hash of its source and flags, so an edited source is rebuilt and a stale
-build is never loaded.  Nothing here runs at import: the CPU tests
-import every module on a machine with no ``nvcc``.
+The sources are compiled by one ``nvcc`` call for ``sm_90a`` into one
+shared library with a plain C interface, at first use, into
+``_cuda_build/`` beside this file, and loaded with ``ctypes``.  The
+library's name carries a hash of every source and the flags, so an
+edited source is rebuilt and a stale build is never loaded.  Nothing
+here runs at import: the CPU tests import every module on a machine
+with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import threading
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
-_SOURCE = _HERE / "csrc" / "orset_kernels.cu"
+_SOURCES = sorted((_HERE / "csrc").glob("*.cu"))
 _BUILD_DIR = _HERE / "_cuda_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -35,6 +36,8 @@ _SIGNATURES = {
                             _I64, _I, _I, _I, _P),
     "antidote_orset_fold": (_I, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
     "antidote_orset_gc": (_I, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
+    "antidote_gate_fixpoint": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _P, _P, _P, _P, _P, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -51,13 +54,14 @@ def _nvcc() -> str:
 
 
 def _lib_path() -> Path:
-    src = _SOURCE.read_bytes()
-    digest = hashlib.sha1(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    return _BUILD_DIR / f"lib{_SOURCE.stem}-{digest[:12]}.so"
+    h = hashlib.sha1(" ".join(_NVCC_FLAGS).encode())
+    for src in _SOURCES:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return _BUILD_DIR / f"libantidote_kernels-{h.hexdigest()[:12]}.so"
 
 
 def build() -> str | None:
-    """Compile the source unless its current library exists.  Returns
+    """Compile the sources unless their current library exists.  Returns
     the ptxas report (registers, shared memory and spills of each
     kernel), or None when nothing was compiled; raises with nvcc's
     output on failure."""
@@ -69,10 +73,11 @@ def build() -> str | None:
     # process building the same source never sees a partial library
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
+        [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {_SOURCE.name} (exit "
+        names = ", ".join(s.name for s in _SOURCES)
+        raise RuntimeError(f"nvcc failed for {names} (exit "
                            f"{proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, path)
     return "\n".join(ln for ln in proc.stdout.splitlines()
@@ -87,8 +92,9 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             report = build()
             if report is not None:
-                print(f"[antidote_tpu_torch] built {_SOURCE.name}:\n"
-                      f"{report}", file=sys.stderr)
+                names = ", ".join(s.name for s in _SOURCES)
+                print(f"[antidote_tpu_torch] built {names}:\n{report}",
+                      file=sys.stderr)
             cdll = ctypes.CDLL(str(_lib_path()))
             for fn, argtypes in _SIGNATURES.items():
                 getattr(cdll, fn).argtypes = argtypes

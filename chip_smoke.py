@@ -83,12 +83,37 @@ and nvcc.  Phases, each of which fails the run on any error or mismatch:
    ``fused_read`` counts one read dispatch and returns what the separate
    reads return; no op overflows and no key is evicted.  No kernel of
    csrc/ lies on this path (the plane is int64 and folds with the plain
-   store functions, as the JAX plane does).
+   store functions, as the JAX plane does);
+10. the causal dependency gate (interdc/dep.py over interdc/
+   gate_kernels.py, ``GATE``) at BASELINE config 5's 256 origin DCs,
+   one partition (257 clock columns, d_pad = 512), on its bench's
+   cascade (seed 7: every txn after an origin's first depends on two
+   other origins' earlier phases).  The fixpoint kernel
+   (csrc/gate_kernels.cu) equals its plain version exactly on the
+   cascade's ring (2,048 rows), seeded rings of 2,048 and 4,096 slots
+   (dead slots, pings, blocked heads, gaps in pos, a serialised chain, a
+   first round without progress), a small one, and the repack path's
+   padded form.  A ring's bulk load, appends, retire and gathers run
+   under the sync check and equal the CPU's.  The bulk probe (2,048
+   txns pre-queued, one process_queues) in ring, repack and host modes
+   drains with each origin in FIFO order and the host walk's applied
+   set, clock and GST, and equals the CPU run (applied list in order,
+   GATE_* deltas), on the cascade and on a 2,048-round chain, where the
+   waits per fixpoint (counted under the "warn" sync mode) must be the
+   cascade's.  The steady stream (N = 256, q_len = 4, one txn an
+   enqueue) with a fixed clock counts the CPU run's dispatches and
+   bytes a txn in ring and repack modes.  Then the main path, timed:
+   the bulk probe in three modes and the steady stream (real clock) in
+   four, the kernel's count set to 0 just before and required to equal
+   the fixpoint dispatches just after; the kernel and its plain version
+   on the cascade with CUDA events beside the bound; the kernel-only
+   rate on the dense cascade; peak device memory.
 
 The line before the last carries the nvidia-smi reading, the ones before
-it the ``kernels``, ``plane`` and ``types`` JSON objects; the last line
-is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
-the package beside it, the script exits non-zero and prints no result.
+it the ``kernels``, ``gate``, ``plane`` and ``types`` JSON objects; the
+last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
+or without the package beside it, the script exits non-zero and prints
+no result.
 """
 
 import json
@@ -105,12 +130,18 @@ import numpy as np
 import torch
 
 from antidote_tpu_torch import _cuda, entry, stats
+from antidote_tpu_torch.clocks import VC
 from antidote_tpu_torch.config import Config
 from antidote_tpu_torch.crdt import get_type
+from antidote_tpu_torch.interdc import dep
+from antidote_tpu_torch.interdc import gate_kernels as ggk
+from antidote_tpu_torch.interdc import synth as gsynth
+from antidote_tpu_torch.interdc.wire import InterDcTxn
 from antidote_tpu_torch.mat import device_plane
 from antidote_tpu_torch.mat import gpu_kernels as gk
 from antidote_tpu_torch.mat import (ingest, rga_kernel, rga_store, store,
                                     synth)
+from antidote_tpu_torch.meta.gossip import StableTimeTracker
 
 # H100 SXM (NVIDIA's data sheet): HBM3 rate
 HBM_BYTES_PER_S = 3.35e12
@@ -1405,6 +1436,399 @@ def phase_plane(device):
     return row
 
 
+#: the gate phase: BASELINE config 5's 256 origin DCs at one partition
+#: (257 clock columns, so d_pad = 512), driven by its probes' recipes,
+#: nothing cut
+GATE = dict(N=256, q_len=8, steady_q_len=4, kernel_iters=8,
+            source="BASELINE config 5, benches/config5_gst.py:113-290 "
+                   "(gate_throughput, gate_steady_stream, "
+                   "gate_device_kernel_rate; _gate_cascade, seed 7)")
+GATE_SOURCE = "antidote_tpu_torch/csrc/gate_kernels.cu"
+GATE_REPLACES = "antidote_tpu/interdc/gate_kernels.py:98"
+GATE_NOW = 10**12
+FIX_NAMES = ("applied", "rounds", "pvc", "new_live", "count")
+
+
+class GatePM:
+    """The probes' stub partition manager: records each applied txn."""
+
+    def __init__(self):
+        self.applied = []
+
+    def apply_remote(self, records, dc, ts, ss):
+        self.applied.append((dc, ts))
+
+
+def gate_counters():
+    reg = stats.registry
+    out = {k: reg.gate_dispatches.value(kind=k)
+           for k in dep.GATE_DISPATCH_KINDS}
+    out.update(h2d=reg.gate_h2d_bytes.value(), d2h=reg.gate_d2h_bytes.value(),
+               admitted=reg.gate_admitted_batched.value(),
+               coalesced=reg.gate_coalesced.value(),
+               rebuilds=reg.gate_ring_rebuilds.value())
+    return out
+
+
+def delta(c0, c1):
+    return {k: c1[k] - c0[k] for k in c0}
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def cascade_ring(N, q_len, device):
+    """The cascade as a bulk-loaded ring holds it: column 0 the own DC
+    at ``GATE_NOW``, column oi + 1 origin oi, every row live.  Returns
+    (the ring's rows, pvc) on ``device``."""
+    rows = gsynth.gate_cascade(N, q_len)
+    ss, origin, pos, ts = gsynth.dense_rows(rows, N)
+    d_pad = max(8, 1 << N.bit_length())
+    ss_pad = np.zeros((len(rows), d_pad), np.int64)
+    ss_pad[:, 1:N + 1] = ss
+    pvc = np.zeros(d_pad, np.int64)
+    pvc[0] = GATE_NOW
+    n = len(rows)
+    ring, pvc = ggk.ring_from_numpy(
+        (ss_pad, origin + 1, pos, ts, np.zeros(n, bool), np.ones(n, bool),
+         pvc), device)
+    return ggk.ring_rows(ring), pvc
+
+
+def padded_form(arrays, device):
+    """A ring state's live rows in dep.py's repack form (dep.py:462-473):
+    packed at the front of a power-of-two row count; padding rows carry
+    2**62 in column 1, pos INT32_MAX // 2, origin 0 and ts 0.  Returns
+    gate_fixpoint's six inputs on ``device``."""
+    ss, origin, pos, ts, ping, live, pvc = arrays
+    keep = np.nonzero(live)[0]
+    n_pad = 1 << (len(keep) - 1).bit_length()
+    keep = keep[:n_pad - n_pad // 8]           # some padding rows
+    n = len(keep)
+    out = (np.zeros((n_pad, ss.shape[1]), np.int64),
+           np.zeros(n_pad, np.int32),
+           np.full(n_pad, np.iinfo(np.int32).max // 2, np.int32),
+           np.zeros(n_pad, np.int64), np.zeros(n_pad, bool))
+    out[0][n:, 1] = 2**62
+    for dst, src in zip(out, (ss, origin, pos, ts, ping)):
+        dst[:n] = src[keep]
+    return [torch.from_numpy(a).to(device) for a in out + (pvc,)]
+
+
+def gate_kernel_checks(device):
+    """Step 1: the fixpoint kernel against its plain version, all five
+    outputs equal exactly, on the cascade, seeded ring states and the
+    repack path's padded form.  Returns (max abs err, the cascade's
+    inputs, applying rounds by input)."""
+    N, q_len = GATE["N"], GATE["q_len"]
+    cases = {"cascade": cascade_ring(N, q_len, device)}
+    for name, args, kw in (
+            ("mixed cap 2048", (21, 2048, 512), {}),
+            ("mixed cap 4096", (22, 4096, 512), {}),
+            ("dead and pings cap 2048", (23, 2048, 512),
+             dict(dead=0.5, pings=0.4)),
+            ("chain cap 2048", (24, 2048, 512), dict(chain=True)),
+            ("stall cap 2048", (25, 2048, 512), dict(stall=True)),
+            ("small cap 64", (26, 64, 16), {})):
+        ring, pvc = ggk.ring_from_numpy(gsynth.ring_state(*args, **kw),
+                                        device)
+        cases[name] = (ggk.ring_rows(ring), pvc)
+    err, rounds = 0, {}
+    for name, (rows, pvc) in cases.items():
+        got = ggk.ring_fixpoint(*rows, pvc)
+        torch.cuda.synchronize()
+        want = ggk.ring_fixpoint_plain(*rows, pvc)
+        e = max(max_err(a, b) for a, b in zip(got, want))
+        if e:
+            bad = [n for n, a, b in zip(FIX_NAMES, got, want)
+                   if not torch.equal(a, b)]
+            fail(f"[gate] ring_fixpoint differs from its plain version on "
+                 f"{name}: {bad}, max abs err {e}")
+        err = max(err, e)
+        rounds[name] = int(got[1].max()) + 1
+        print(f"[gate] {name}: kernel = plain; {int(got[4])} of "
+              f"{int(rows[5].sum())} live rows applied in {rounds[name]} "
+              f"rounds", flush=True)
+    for name, args, kw in (("padded mixed", (27, 2048, 512), {}),
+                           ("padded chain", (28, 1024, 512),
+                            dict(chain=True))):
+        inputs = padded_form(gsynth.ring_state(*args, **kw), device)
+        got = dep.gate_fixpoint(*inputs)
+        torch.cuda.synchronize()
+        want = ggk.ring_fixpoint_plain(*inputs[:5], None, inputs[5])[:3]
+        e = max(max_err(a, b) for a, b in zip(got, want))
+        if e or bool(got[0][-1]):
+            fail(f"[gate] gate_fixpoint differs from its plain version on "
+                 f"{name} (max abs err {e}) or applied a sentinel row")
+        err = max(err, e)
+        print(f"[gate] {name} ({inputs[0].shape[0]} rows): gate_fixpoint = "
+              f"plain; {int(got[0].sum())} applied", flush=True)
+    return err, cases["cascade"], rounds
+
+
+def gate_bulk(mode, device, rows, waits=None):
+    """gate_throughput's recipe: every txn of ``rows`` pre-queued, then
+    one process_queues; ``mode`` ring, repack or host.  Each origin must
+    apply in FIFO order.  Returns the applied list, the clock, the GST,
+    the GATE_* deltas, the kernel's launches and txns/s."""
+    origins = gsynth.origin_names(GATE["N"])
+    pm = GatePM()
+    gate = dep.DependencyGate(
+        pm, "self", now_us=lambda: GATE_NOW,
+        batch_threshold=10**9 if mode == "host" else 1, adapt=False,
+        device_ring=mode != "repack", device=device)
+    tracker = StableTimeTracker("self", n_partitions=1)
+    gate.on_clock_update = lambda: tracker.put(0, gate.partition_vc())
+    queues = {o: deque() for o in origins}
+    for r in rows:
+        t = gsynth.make_txn(r, origins)
+        queues[t.dc_id].append(t)
+    fifo = {o: [t.timestamp for t in q] for o, q in queues.items()}
+    gate.queues.update(queues)
+    c0, l0 = gate_counters(), ggk.ring_fixpoint.launches
+    sync(device)
+    with count_waits(waits) if waits is not None else nullcontext():
+        t0 = time.perf_counter()
+        gate.process_queues()
+        sync(device)
+        dt = time.perf_counter() - t0
+    if gate.pending():
+        fail(f"[gate] bulk {mode} on {device}: {gate.pending()} txns left")
+    by_origin = {o: [] for o in origins}
+    for dc, ts in pm.applied:
+        by_origin[dc].append(ts)
+    if by_origin != fifo:
+        fail(f"[gate] bulk {mode} on {device}: applied out of FIFO order")
+    return dict(applied=pm.applied, vc=dict(gate.applied_vc),
+                gst=dict(tracker.get_stable_snapshot()),
+                counters=delta(c0, gate_counters()),
+                launches=ggk.ring_fixpoint.launches - l0,
+                txns_per_s=len(rows) / dt)
+
+
+def gate_steady(mode, device, fixed_clock):
+    """gate_steady_stream's recipe: N = 256, q_len = 4, one txn an
+    enqueue, phase-major, then process_queues until drained; ``mode``
+    ring (with its coalescing window), repack (none), host or adaptive
+    (the production defaults).  Returns its result."""
+    N, q_len = GATE["N"], GATE["steady_q_len"]
+    origins = gsynth.origin_names(N)
+    pm = GatePM()
+
+    def now_us():
+        return GATE_NOW if fixed_clock else int(time.perf_counter() * 1e6)
+
+    kw = {"host": dict(batch_threshold=10**9, adapt=False),
+          "adaptive": {},
+          "repack": dict(batch_threshold=1, adapt=False, device_ring=False,
+                         coalesce_us=0),
+          "ring": dict(batch_threshold=1, adapt=False, device_ring=True)}
+    gate = dep.DependencyGate(pm, "self", now_us, device=device, **kw[mode])
+    rows = gsynth.gate_cascade(N, q_len)
+    arrival = sorted(range(len(rows)), key=lambda i: (rows[i][1], rows[i][0]))
+    txns = [gsynth.make_txn(rows[i], origins) for i in arrival]
+    c0, l0 = gate_counters(), ggk.ring_fixpoint.launches
+    sync(device)
+    t0 = time.perf_counter()
+    for t in txns:
+        gate.enqueue(t)
+    for _ in range(16 * q_len):
+        if not gate.pending():
+            break
+        gate.process_queues()
+    sync(device)
+    dt = time.perf_counter() - t0
+    n = len(rows)
+    if gate.pending() or len(pm.applied) != n:
+        fail(f"[gate] steady {mode} on {device} did not drain")
+    c = delta(c0, gate_counters())
+    disp = sum(c[k] for k in dep.GATE_DISPATCH_KINDS)
+    return dict(applied=sorted(pm.applied), counters=c,
+                launches=ggk.ring_fixpoint.launches - l0,
+                txns_per_s=n / dt, dispatches_per_txn=disp / n,
+                h2d_bytes_per_txn=c["h2d"] / n,
+                d2h_bytes_per_txn=c["d2h"] / n)
+
+
+def gate_ring_updates(device):
+    """A bulk load, a growing gather with appends, a retire, appends into
+    freed slots and a widening gather of one ring: each a
+    ``_DeviceRing.sync`` after the queues were changed by hand, under the
+    sync check on the card.  Returns (dispatch deltas, the ring's rows on
+    the CPU)."""
+    N = GATE["N"]
+    origins = gsynth.origin_names(N)
+    rows = gsynth.gate_cascade(N, GATE["q_len"])
+    gate = dep.DependencyGate(GatePM(), "self", lambda: GATE_NOW,
+                              batch_threshold=1, adapt=False, device=device)
+    ring = gate._ring = dep._DeviceRing(gate)
+    c0 = gate_counters()
+
+    def sync_ring(txns):
+        for t in txns:
+            gate.queues.setdefault(t.dc_id, deque()).append(t)
+        with maybe_no_host_wait(device):
+            ring.sync()
+
+    def phase(sel):
+        return [gsynth.make_txn(r, origins) for r in rows if sel(r)]
+
+    sync_ring(phase(lambda r: r[1] < 4))                    # bulk load
+    sync_ring(phase(lambda r: r[1] in (4, 5) and r[0] % 2))  # grow
+    for o in origins[:100]:                       # heads leave the queues
+        gate.queues[o].popleft()
+    sync_ring([])                                           # retire
+    sync_ring(phase(lambda r: r[1] == 6 and r[0] < 50))     # append
+    d_pad = ring.d_pad
+    sync_ring([InterDcTxn(                                  # widen
+        dc_id=f"new{i:03d}", partition=0, prev_log_opid=0,
+        snapshot_vc=VC({f"new{i:03d}": 4999 + i}), timestamp=5000 + i,
+        records=["r"]) for i in range(300)])
+    if ring.n_live != gate.pending() or ring.d_pad <= d_pad:
+        fail(f"[gate] the ring holds {ring.n_live} of {gate.pending()} "
+             f"queued txns at d_pad {ring.d_pad}")
+    return (delta(c0, gate_counters()),
+            [t.cpu() for t in ggk.ring_rows(ring.dev)])
+
+
+def phase_gate(device):
+    """Phase 10: the causal dependency gate at BASELINE config 5's 256
+    DCs (``GATE``), with its checks.  Returns (its summary row, the
+    kernel's row)."""
+    N, q_len = GATE["N"], GATE["q_len"]
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. the kernel against its plain version
+    err, (rows_c, pvc_c), rounds = gate_kernel_checks(device)
+
+    # 4a. the ring's updates never wait; the card's ring equals the CPU's
+    upd, ring_card = gate_ring_updates(device)
+    upd_cpu, ring_cpu = gate_ring_updates(cpu)
+    if upd != upd_cpu or not all(map(torch.equal, ring_card, ring_cpu)):
+        fail(f"[gate] ring updates differ: card {upd}, CPU {upd_cpu}")
+    if min(upd["append"], upd["gather"] - 1, upd["retire"]) < 1:
+        fail(f"[gate] the update sequence missed a dispatch kind: {upd}")
+    print(f"[gate] bulk load, appends, retire and gathers without a wait "
+          f"(dispatches {upd}); the ring equals the CPU's", flush=True)
+
+    # 2. the bulk probe; 4b. the waits per fixpoint at the cascade's
+    #    rounds and at a serialised chain's 2,048
+    cascade = gsynth.gate_cascade(N, q_len)
+    chain = gsynth.serial_chain(N, N * q_len)
+    for mode in ("ring", "repack", "host"):                 # warm-up
+        gate_bulk(mode, device, cascade)
+    waits = {}
+    for wl, rows in (("cascade", cascade), ("chain", chain)):
+        host = gate_bulk("host", device, rows)
+        for mode in ("ring", "repack"):
+            box = [0]
+            r = gate_bulk(mode, device, rows, waits=box)
+            waits[f"{wl}_{mode}"] = box[0] / r["counters"]["fixpoint"]
+            if (sorted(r["applied"]) != sorted(host["applied"])
+                    or r["vc"] != host["vc"] or r["gst"] != host["gst"]):
+                fail(f"[gate] bulk {wl} {mode}: the applied set, clock or "
+                     f"GST differ from the host walk's")
+            if r["launches"] != r["counters"]["fixpoint"]:
+                fail(f"[gate] bulk {wl} {mode}: {r['launches']} launches "
+                     f"for {r['counters']['fixpoint']} fixpoints")
+            c = gate_bulk(mode, cpu, rows)
+            if c["applied"] != r["applied"] or c["counters"] != r["counters"]:
+                fail(f"[gate] bulk {wl} {mode}: the card's run differs from "
+                     f"the CPU's: {r['counters']} against {c['counters']}")
+    for mode in ("ring", "repack"):
+        w = waits[f"cascade_{mode}"]
+        if w != waits[f"chain_{mode}"] or w > 2:
+            fail(f"[gate] waits per fixpoint grow with the rounds: {waits}; "
+                 f"by site {WAIT_SITES}")
+    print(f"[gate] bulk: every mode drains; ring and repack = host walk = "
+          f"CPU run; waits per fixpoint {waits} at {rounds['cascade']} and "
+          f"{N * q_len} rounds", flush=True)
+
+    # 3. the steady stream with a fixed clock: the card's counts = CPU's
+    for mode in ("ring", "repack"):
+        card = gate_steady(mode, device, fixed_clock=True)
+        host = gate_steady(mode, cpu, fixed_clock=True)
+        keys = ("dispatches_per_txn", "h2d_bytes_per_txn",
+                "d2h_bytes_per_txn", "applied")
+        if any(card[k] != host[k] for k in keys) or \
+                card["launches"] != card["counters"]["fixpoint"]:
+            fail(f"[gate] steady {mode}, fixed clock: card "
+                 f"{[card[k] for k in keys[:3]]}, CPU "
+                 f"{[host[k] for k in keys[:3]]}, {card['launches']} "
+                 f"launches")
+
+    # 5. the main path, timed: the bulk probe and the steady stream in
+    #    every mode, the kernel's count set to 0 just before, read after
+    ggk.ring_fixpoint.launches = 0
+    c0 = gate_counters()
+    bulk = {m: gate_bulk(m, device, cascade)
+            for m in ("ring", "repack", "host")}
+    steady = {}
+    for mode in ("ring", "repack", "host", "adaptive"):
+        gate_steady(mode, device, fixed_clock=False)        # warm-up
+        steady[mode] = gate_steady(mode, device, fixed_clock=False)
+    launches = ggk.ring_fixpoint.launches
+    fixpoints = delta(c0, gate_counters())["fixpoint"]
+    if launches != fixpoints or not launches:
+        fail(f"[gate] {launches} kernel launches for {fixpoints} fixpoint "
+             f"dispatches on the main path")
+    if any(s["applied"] != steady["host"]["applied"]
+           for s in steady.values()):
+        fail("[gate] the steady modes applied different sets")
+
+    out = ggk.ring_fixpoint(*rows_c, pvc_c)
+    io = nbytes(*rows_c, pvc_c) + nbytes(*out[:4]) + 4     # + the count
+    ms = cuda_ms(lambda: ggk.ring_fixpoint(*rows_c, pvc_c), 50)
+    plain_ms = cuda_ms(lambda: ggk.ring_fixpoint_plain(*rows_c, pvc_c), 3)
+    n = len(cascade)
+    dense_args = [torch.from_numpy(a).to(device)
+                  for a in gsynth.dense_rows(cascade, N)]
+    dense_args[4:4] = [torch.zeros(n, dtype=torch.bool, device=device)]
+    dense_args.append(torch.zeros(N, dtype=torch.int64, device=device))
+    if not bool(dep.gate_fixpoint(*dense_args)[0].all()):
+        fail("[gate] the dense cascade did not drain")
+    kernel_ms = cuda_ms(lambda: dep.gate_fixpoint(*dense_args),
+                        GATE["kernel_iters"])
+    peak = torch.cuda.max_memory_allocated()
+
+    row = {
+        "type": "gate", "source": GATE["source"], "dcs": N,
+        "clock_columns": N + 1, "d_pad": rows_c[0].shape[1],
+        "bulk_txns": n, "steady_txns": N * GATE["steady_q_len"],
+        "fixpoint_ms": ms, "fixpoint_plain_ms": plain_ms,
+        "fixpoint_bound_ms": io / HBM_BYTES_PER_S * 1e3,
+        "applying_rounds": rounds,
+        "kernel_only_ms": kernel_ms,
+        "kernel_only_txns_per_s": n / (kernel_ms / 1e3),
+        "bulk_txns_per_s": {m: r["txns_per_s"] for m, r in bulk.items()},
+        "steady": {m: {k: s[k] for k in (
+            "txns_per_s", "dispatches_per_txn", "h2d_bytes_per_txn",
+            "d2h_bytes_per_txn")} for m, s in steady.items()},
+        "waits_per_fixpoint": waits, "ring_updates": upd,
+        "launches": launches, "fixpoint_dispatches": fixpoints,
+        "max_memory_allocated": peak,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    kernel_row = {
+        "name": "gate_fixpoint", "route": "cuda", "source": GATE_SOURCE,
+        "replaces": GATE_REPLACES, "launches": launches,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": row["fixpoint_bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+    }
+    print(f"[gate] N={N}: fixpoint {ms:.4f} ms (bound "
+          f"{row['fixpoint_bound_ms']:.4f} ms by bytes), plain "
+          f"{plain_ms:.3f} ms, {rounds['cascade']} rounds; kernel-only "
+          f"{row['kernel_only_txns_per_s']:.0f} txns/s; bulk txns/s "
+          f"{row['bulk_txns_per_s']}; steady {row['steady']}; {launches} "
+          f"launches = fixpoint dispatches; peak {peak} B", flush=True)
+    return row, kernel_row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1439,8 +1863,11 @@ def main():
     types += phase_ingest(device)
     types.append(phase_rga(device))
     plane = phase_plane(device)
+    gate, gate_kernel = phase_gate(device)
+    rows.append(gate_kernel)
     print(json.dumps({"types": types}))
     print(json.dumps({"plane": plane}))
+    print(json.dumps({"gate": gate}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,10 @@ version on the card, the superstep, every shard type's store, the packed
 ingest plane, the RGA merge and store and the live device plane of every
 CRDT type on the card against the same calls on the CPU, the appends,
 purges, RGA reads and folds that must never wait for the card, the
-device plane's waits (one a flush chunk, one a read), and the wrappers'
+device plane's waits (one a flush chunk, one a read), the dependency
+gate's fixpoint kernel against its plain version and the gate on the
+card against the gate on the CPU (its ring updates without a wait, its
+waits per fixpoint the same at any number of rounds), and the wrappers'
 refusals.  Every test here
 skips where no CUDA device is present.
 
@@ -14,6 +17,7 @@ installed (``--noconftest`` skips tests/conftest.py, which imports it):
 """
 
 import warnings
+from collections import deque
 from contextlib import contextmanager
 from dataclasses import fields
 
@@ -24,6 +28,9 @@ import torch
 from antidote_tpu_torch import entry
 from antidote_tpu_torch import stats
 from antidote_tpu_torch.clocks import VC
+from antidote_tpu_torch.interdc import dep
+from antidote_tpu_torch.interdc import gate_kernels as ggk
+from antidote_tpu_torch.interdc import synth as gsynth
 from antidote_tpu_torch.mat import (device_plane, gpu_kernels, ingest,
                                     rga_kernel, rga_store, store, synth)
 
@@ -431,3 +438,121 @@ def test_plane_waits_once_a_flush_chunk_and_a_read(cuda_device):
     assert w[0] == 1 and device_plane.read_dispatch_count() == n0 + 1, w
     assert fused == [c() for c in caps]
     assert all(c.device.type == "cuda" for c in caps)
+
+
+#: (seed, cap, d, options) of the fixpoint's seeded ring states
+GATE_STATES = [(1, 64, 16, {}), (2, 2048, 512, {}),
+               (3, 512, 512, dict(chain=True)), (4, 256, 8, dict(stall=True)),
+               (5, 1024, 64, dict(dead=0.5, pings=0.5))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(GATE_STATES)))
+def test_gate_fixpoint_kernel_matches_plain(cuda_device, case):
+    seed, cap, d, kw = GATE_STATES[case]
+    ring, pvc = ggk.ring_from_numpy(gsynth.ring_state(seed, cap, d, **kw),
+                                    cuda_device)
+    rows = ggk.ring_rows(ring)
+    n0 = ggk.ring_fixpoint.launches
+    got = ggk.ring_fixpoint(*rows, pvc)
+    every = dep.gate_fixpoint(*rows[:5], pvc)       # every row live
+    torch.cuda.synchronize()
+    assert ggk.ring_fixpoint.launches == n0 + 2
+    want = ggk.ring_fixpoint_plain(*rows, pvc)
+    want_every = ggk.ring_fixpoint_plain(*rows[:5], None, pvc)[:3]
+    for g, w in zip(got + every, want + want_every):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _gate_run(device, mode, rows, steady):
+    """The cascade's txns through a gate on ``device``: pre-queued with
+    one process_queues, or one an enqueue (phase-major) with a fixed
+    clock.  Returns (applied list, clock, GATE_* deltas, launches)."""
+    reg = stats.registry
+    origins = gsynth.origin_names(16)
+    applied = []
+    pm = type("PM", (), {"apply_remote": lambda self, r, dc, ts, ss:
+                         applied.append((dc, ts))})()
+    gate = dep.DependencyGate(pm, "self", lambda: 10**12,
+                              batch_threshold=1, adapt=False,
+                              device_ring=mode == "ring", device=device)
+
+    def counts():
+        return ([reg.gate_dispatches.value(kind=k)
+                 for k in dep.GATE_DISPATCH_KINDS]
+                + [reg.gate_h2d_bytes.value(), reg.gate_d2h_bytes.value()])
+
+    c0, l0 = counts(), ggk.ring_fixpoint.launches
+    if steady:
+        for r in sorted(rows, key=lambda r: (r[1], r[0])):
+            gate.enqueue(gsynth.make_txn(r, origins))
+    else:
+        for t in (gsynth.make_txn(r, origins) for r in rows):
+            gate.queues.setdefault(t.dc_id, deque()).append(t)
+    for _ in range(64):
+        if not gate.pending():
+            break
+        gate.process_queues()
+    assert not gate.pending()
+    return (applied, dict(gate.applied_vc),
+            [b - a for a, b in zip(c0, counts())],
+            ggk.ring_fixpoint.launches - l0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steady", [False, True])
+@pytest.mark.parametrize("mode", ["ring", "repack"])
+def test_gate_on_card_matches_cpu(cuda_device, mode, steady):
+    rows = gsynth.gate_cascade(16, 8)
+    card = _gate_run(cuda_device, mode, rows, steady)
+    cpu = _gate_run(torch.device("cpu"), mode, rows, steady)
+    assert card[:3] == cpu[:3]
+    assert card[3] == card[2][0] > 0          # a launch a fixpoint
+
+
+@pytest.mark.cuda
+def test_gate_ring_never_waits_and_fixpoint_waits_alike(cuda_device):
+    """A ring's bulk load, appends, retire and gathers never wait; a
+    fixpoint waits as often at 128 rounds as at 8."""
+    origins = gsynth.origin_names(16)
+    gate = dep.DependencyGate(None, "self", lambda: 10**12,
+                              batch_threshold=1, adapt=False,
+                              device=cuda_device)
+    ring = gate._ring = dep._DeviceRing(gate)
+    rows = gsynth.gate_cascade(16, 8)
+
+    def sync_ring(sel):
+        for r in rows:
+            if sel(r):
+                t = gsynth.make_txn(r, origins)
+                gate.queues.setdefault(t.dc_id, deque()).append(t)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ring.sync()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    sync_ring(lambda r: r[1] < 4)                     # bulk load
+    sync_ring(lambda r: r[1] == 4)                    # grow: a gather
+    for o in origins[:5]:
+        gate.queues[o].popleft()
+    sync_ring(lambda r: False)                        # retire
+    sync_ring(lambda r: r[1] == 5 and r[0] < 3)       # append
+    assert ring.n_live == gate.pending()
+    waits = []
+    for rows in (gsynth.gate_cascade(16, 8), gsynth.serial_chain(16, 128)):
+        applied = []
+        pm = type("PM", (), {"apply_remote": lambda self, r, dc, ts, ss:
+                             applied.append(dc)})()
+        g = dep.DependencyGate(pm, "self", lambda: 10**12,
+                               batch_threshold=1, adapt=False,
+                               device=cuda_device)
+        for t in (gsynth.make_txn(r, origins) for r in rows):
+            g.queues.setdefault(t.dc_id, deque()).append(t)
+        f0 = stats.registry.gate_dispatches.value(kind="fixpoint")
+        with _waits() as w:
+            g.process_queues()
+        assert len(applied) == len(rows)
+        waits.append(w[0] / (stats.registry.gate_dispatches.value(
+            kind="fixpoint") - f0))
+    assert waits[0] == waits[1] <= 2, waits

@@ -16,6 +16,8 @@ import torch_parity as tp
 from antidote_tpu.clocks import dense as jdense
 from antidote_tpu.mat import store as jstore
 from antidote_tpu_torch import entry
+from antidote_tpu_torch.config import Config
+from antidote_tpu_torch.interdc import dep
 from antidote_tpu_torch.mat import (convert, device_plane, rga_store,
                                     store)
 
@@ -92,7 +94,9 @@ def test_import_leaves_jax_out():
             "antidote_tpu_torch.mat.device_plane, "
             "antidote_tpu_torch.mat.materializer, antidote_tpu_torch.crdt, "
             "antidote_tpu_torch.config, antidote_tpu_torch.stats, "
-            "antidote_tpu_torch.obs.prof; "
+            "antidote_tpu_torch.obs.prof, antidote_tpu_torch.interdc.dep, "
+            "antidote_tpu_torch.interdc.synth, antidote_tpu_torch.meta, "
+            "antidote_tpu_torch.oplog, antidote_tpu_torch.txn; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'antidote_tpu.')) or "
             "m == 'antidote_tpu']; print(bad); sys.exit(1 if bad else 0)")
@@ -117,6 +121,8 @@ def test_import_leaves_jax_out():
     lambda: store.setgo_shard_init(4, 8, 8, 8),
     lambda: rga_store.rga_store_init(16, 16, 8),
     lambda: device_plane.DevicePlane(),
+    lambda: dep.DependencyGate(None, "dc", lambda: 0),
+    lambda: dep.gate_from_config(None, "dc", lambda: 0, Config()),
 ])
 def test_no_device_raises_without_a_card(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

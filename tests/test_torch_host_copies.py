@@ -1,9 +1,13 @@
 """The port's copies of the JAX package's host-only modules (vector
 clocks, config, CRDTs, the host materializer's payloads, the span tracer
-and flight recorder, the stats registry) equal their sources line for
-line, but for the package name in their import statements: a change on
-either side that is not carried over fails here."""
+and flight recorder, the stats registry, the log records, the inter-DC
+wire format, the metadata sender, the GST fold and the stable metadata
+store) equal their sources line for line, but for the package name in
+their import statements, and so do the single classes and functions the
+port copied out of larger modules: a change on either side that is not
+carried over fails here."""
 
+import ast
 import os
 import re
 
@@ -14,7 +18,12 @@ COPIES = ["clocks/vc.py", "config.py", "crdt/__init__.py", "crdt/base.py",
           "crdt/counters.py", "crdt/registers.py", "crdt/sets.py",
           "crdt/flags.py", "crdt/maps.py", "crdt/rga.py",
           "mat/materializer.py", "obs/events.py", "obs/spans.py",
-          "stats.py"]
+          "stats.py", "oplog/records.py", "interdc/wire.py",
+          "interdc/termcodec.py", "meta/sender.py", "meta/gossip.py",
+          "meta/stable_store.py"]
+#: (module, top-level class or function) copied alone
+EXCERPTS = [("txn/manager.py", "PartitionRetired"),
+            ("oplog/log.py", "_fsync_dir")]
 _IMPORT = re.compile(r"^(\s*(?:from|import) )antidote_tpu\b")
 
 
@@ -33,3 +42,22 @@ def test_copy_equals_its_source(rel):
         assert g == w, f"{rel}:{n}"
     # every import of the package names the port
     assert not any(_IMPORT.match(line) for line in got)
+
+
+def _excerpt(pkg, rel, name):
+    path = os.path.join(REPO, pkg, rel)
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    for node in ast.parse(text).body:
+        if getattr(node, "name", None) == name:
+            return ast.get_source_segment(text, node)
+    raise AssertionError(f"{pkg}/{rel} has no {name}")
+
+
+@pytest.mark.parametrize("rel,name", EXCERPTS)
+def test_excerpt_equals_its_source(rel, name):
+    want = _excerpt("antidote_tpu", rel, name)
+    assert _excerpt("antidote_tpu_torch", rel, name) == want
+    if name == "PartitionRetired":     # antidote_tpu/txn/manager.py:48-55
+        lines = _read("antidote_tpu", rel)[47:55]
+        assert want == "\n".join(lines).rstrip("\n")
