@@ -37,7 +37,9 @@ _SIGNATURES = {
     "antidote_orset_fold": (_I, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
     "antidote_orset_gc": (_I, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
     "antidote_gate_fixpoint": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _P, _P, _P, _P, _P, _P, _P),
+                               _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _P),
+    "antidote_gate_probe": (_I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

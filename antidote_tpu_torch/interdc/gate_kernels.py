@@ -29,14 +29,22 @@ live) with one launch of the hand-written CUDA kernel in
 its plain version, :func:`ring_fixpoint_plain`, waits for the card once
 a round to read the loop's condition.  The kernel's bound is one read of
 its inputs and one write of its outputs (about 2.5 µs on an H100 at the
-256-DC gate's 2,048 × 512 ring); a single block running the data-
-dependent rounds behind block-wide barriers sits far below it (the
-source's header says what the design does about it).  A CPU tensor runs
-the plain version, and only a CPU tensor; a CUDA tensor launches the
-kernel or raises.
+256-DC gate's 2,048 × 512 ring); its data-dependent rounds, each two
+barriers and, for a row whose dependencies moved, a load's round trip,
+keep it above that.  It runs as one thread-block cluster of up to 16
+CTAs whose shape :func:`fixpoint_geometry` picks from ``n`` and ``d``
+alone (a small ring is one CTA), with the per-origin tables in shared
+memory and L2 or, for a clock too wide for shared memory, in a global
+scratch: it takes any width (the source's header says how).  A CPU
+tensor runs the plain version, and only a CPU tensor; a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+from collections import Counter
+from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,9 +59,68 @@ BIG_POS = np.int32(np.iinfo(np.int32).max // 2)
 #: the fixpoint's "no blocked row" minimum (BIG, not BIG_POS: a padding
 #: row's BIG_POS position still blocks nothing real)
 _BIG = int(np.iinfo(np.int32).max)
-#: widest clock the kernel takes: its shared tables (20 bytes a column)
-#: must fit a block's 227 KB
-MAX_D = 8_192
+
+#: the fixpoint kernel's geometry (mirrored in csrc/gate_kernels.cu):
+#: rows up to which one CTA runs alone, and its most threads; rows a CTA
+#: of a cluster takes, and its threads; the largest cluster (non-
+#: portable above 8); the dynamic shared memory a CTA may use (H100:
+#: 227 KB); bytes ahead of the clock
+ONE_CTA_ROWS = 256
+ONE_CTA_THREADS = 512
+CTA_ROWS = 128
+CLUSTER_THREADS = 1024
+MAX_CTAS = 16
+SMEM_LIMIT = 232_448
+_SMEM_HEADER = 16
+
+
+class FixpointGeometry(NamedTuple):
+    """One fixpoint launch's shape: ``ctas`` CTAs of ``threads`` (one
+    cluster when more than one); ``tables`` "shared" (the replicated
+    clock and the column-split blocked minima in the CTAs' shared
+    memory, the advance maxima too on one CTA, in ``scratch`` int64
+    words of global memory in a cluster) or "global" (every table in
+    the scratch); ``smem`` dynamic shared bytes a CTA; ``row_scratch``
+    int64 words of global scratch for the rows' state (0: it is in
+    shared memory)."""
+    ctas: int
+    threads: int
+    tables: str
+    smem: int
+    scratch: int
+    row_scratch: int
+
+
+@lru_cache(maxsize=256)
+def fixpoint_geometry(n: int, d: int) -> FixpointGeometry:
+    """The fixpoint kernel's launch for ``n`` rows and ``d`` clock
+    columns, from the shapes alone (picking reads no data): one CTA up
+    to ``ONE_CTA_ROWS`` rows, of a warp a row up to ``ONE_CTA_THREADS``;
+    else a power-of-two cluster of about ``CTA_ROWS`` rows a CTA, at
+    most ``MAX_CTAS``, each of ``CLUSTER_THREADS``.  A CTA holds the
+    whole clock (8 bytes a column), both parities of its slice of the
+    blocked minima (4 bytes a column each) and, on one CTA, both
+    parities of the advance maxima (8 bytes each); a cluster keeps the
+    advances in global scratch (2 d words).  Where a CTA's share
+    exceeds ``SMEM_LIMIT``, every table goes to global scratch: each
+    CTA's clock, then both parities of the advances and of the minima
+    (int32, two to a word).  Each CTA's rows' state (76 bytes a row)
+    follows in shared memory where it fits, else it is kept in 8 n
+    words of global scratch."""
+    ctas, threads = 1, min(ONE_CTA_THREADS, 32 * max(2, n))
+    if n > ONE_CTA_ROWS:
+        ctas = min(MAX_CTAS, 1 << (-(-n // CTA_ROWS) - 1).bit_length())
+        threads = CLUSTER_THREADS
+    cpc = -(-d // ctas) if d else 1
+    adv = 16 * cpc if ctas == 1 else 0
+    smem = _SMEM_HEADER + 8 * d + adv + 8 * cpc
+    tables, scratch = "shared", 0 if ctas == 1 else 2 * d
+    if smem > SMEM_LIMIT:
+        smem, tables, scratch = _SMEM_HEADER, "global", ctas * d + 3 * d
+    rows, row_scratch = 76 * -(-n // ctas), 8 * n
+    if smem + rows <= SMEM_LIMIT:
+        smem, row_scratch = smem + rows, 0
+    return FixpointGeometry(ctas, threads, tables, smem, scratch, row_scratch)
 
 
 def ring_alloc(cap: int, d_pad: int, device):
@@ -228,9 +295,6 @@ def ring_fixpoint(ss, origin, pos, ts, ping, live, pvc):
     if ss.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {ss.device}")
     n, d = ss.shape[0], pvc.shape[0]
-    if d > MAX_D:
-        raise ValueError(f"d = {d}: the kernel takes at most {MAX_D} "
-                         f"clock columns")
     args = (ss, origin, pos, ts, ping, pvc) + (() if live is None
                                                 else (live,))
     if not all(t.is_contiguous() for t in args):
@@ -241,15 +305,22 @@ def ring_fixpoint(ss, origin, pos, ts, ping, live, pvc):
     pvc_out = torch.empty((d,), dtype=torch.int64, device=dev)
     new_live = None if live is None else torch.empty_like(applied)
     count = torch.empty((), dtype=torch.int32, device=dev)
-    prog = torch.empty((n,), dtype=torch.int32, device=dev)
+    geo = fixpoint_geometry(n, d)
+    rows, tables = (torch.empty((k,), dtype=torch.int64, device=dev)
+                    if k else None for k in (geo.row_scratch, geo.scratch))
     ptr = (lambda t: None if t is None else t.data_ptr())
     _cuda.call("antidote_gate_fixpoint", ss.data_ptr(), origin.data_ptr(),
                pos.data_ptr(), ts.data_ptr(), ping.data_ptr(), ptr(live),
                pvc.data_ptr(), n, d, applied.data_ptr(), rounds.data_ptr(),
                pvc_out.data_ptr(), ptr(new_live), count.data_ptr(),
-               prog.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+               ptr(rows), ptr(tables), geo.ctas, geo.threads,
+               int(geo.tables == "global"), geo.smem,
+               torch.cuda.current_stream(dev).cuda_stream)
     ring_fixpoint.launches += 1
+    ring_fixpoint.shapes[n, d] += 1
     return applied, rounds, pvc_out, new_live, count
 
 
+#: launches of the kernel, in all and by (n, d)
 ring_fixpoint.launches = 0
+ring_fixpoint.shapes = Counter()

@@ -13,11 +13,12 @@ from antidote_tpu_torch.interdc.gate_kernels import BIG_POS
 from antidote_tpu_torch.interdc.wire import InterDcTxn
 
 
-def gate_cascade(N, q_len=8):
+def gate_cascade(N, q_len=8, fanout=2):
     """(origin_idx, pos, ts, deps) rows where deps maps origin_idx ->
-    timestamp.  Txn at phase p > 0 carries two cross-origin dependencies
-    on strictly earlier phases, so the cascade drains fully by induction
-    on p with ~q_len rounds.  Seed 7, as the bench."""
+    timestamp.  Txn at phase p > 0 carries ``fanout`` (the bench: two)
+    cross-origin dependencies on strictly earlier phases, so the cascade
+    drains fully by induction on p with ~q_len rounds.  Seed 7, as the
+    bench."""
     rng = np.random.default_rng(7)
     rows = []
     for oi in range(N):
@@ -26,7 +27,7 @@ def gate_cascade(N, q_len=8):
             ts = base + 100 * p
             deps = {}
             if p > 0:
-                for dep_oi in rng.choice(N, size=2, replace=False):
+                for dep_oi in rng.choice(N, size=fanout, replace=False):
                     if dep_oi != oi:
                         deps[int(dep_oi)] = (1000 * (dep_oi + 1)
                                              + 100 * int(rng.integers(0, p)))
@@ -78,16 +79,34 @@ def dense_rows(rows, N):
     return ss, origin, pos, ts
 
 
+def probe_state(rows, N, now):
+    """Seven numpy arrays (as :func:`ring_state`'s) of probe rows
+    (:func:`gate_cascade`'s form) as a bulk-loaded ring holds them:
+    column 0 the own DC at ``now``, column oi + 1 origin oi, d_pad the
+    gate's (the next power of two above N, at least 8), every row
+    live."""
+    ss, origin, pos, ts = dense_rows(rows, N)
+    n = len(rows)
+    d_pad = max(8, 1 << N.bit_length())
+    ss_pad = np.zeros((n, d_pad), np.int64)
+    ss_pad[:, 1:N + 1] = ss
+    pvc = np.zeros(d_pad, np.int64)
+    pvc[0] = now
+    return (ss_pad, origin + 1, pos, ts, np.zeros(n, bool), np.ones(n, bool),
+            pvc)
+
+
 def ring_state(seed, cap, d, *, dead=0.2, pings=0.15, chain=False,
                stall=False):
     """Seven numpy arrays (ss, origin, pos, ts, ping, live, pvc) of a
     ring with ``cap`` slots and ``d`` clock columns (column 0 the own
     DC at ``now``): per-origin FIFOs with gaps in pos, scattered over the
     slots, some slots dead or never used, pings, and dependencies on
-    other origins' queued times, so heads block and cascade.  ``chain``
-    makes one fully serialised chain (one txn applies a round);
-    ``stall`` makes nothing ready and every blocked head's ts - 1 already
-    below the clock (no progress in the first round)."""
+    other origins' queued times, so heads block and cascade; 80 % of the
+    slots are used (at least one).  ``chain`` makes one fully serialised
+    chain (one txn applies a round); ``stall`` makes nothing ready and
+    every blocked head's ts - 1 already below the clock (no progress in
+    the first round)."""
     rng = np.random.default_rng(seed)
     n_orig = d - 1
     ss = np.zeros((cap, d), np.int64)
@@ -99,7 +118,7 @@ def ring_state(seed, cap, d, *, dead=0.2, pings=0.15, chain=False,
     pvc = np.zeros(d, np.int64)
     pvc[0] = 10**6
     slots = rng.permutation(cap)
-    n_rows = int(cap * 0.8)
+    n_rows = max(1, int(cap * 0.8))
     if chain:
         rows = serial_chain(n_orig, n_rows)
         for k, (oi, p, t, deps) in enumerate(rows):

@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (antidote_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--gate-only] [--parent DIR]
 
-Run from the repository root on a machine with an NVIDIA H100 (sm_90a)
-and nvcc.  Phases, each of which fails the run on any error or mismatch:
+``--gate-only`` runs phases 1, 2 and 10 alone; ``--parent DIR`` imports
+the fixpoint wrapper (``ring_fixpoint``) of another checkout at DIR, an
+earlier commit, from its own package and sources, and phase 10 times
+that kernel in turns with this one on the same inputs.  Run from the
+repository root on a machine with an NVIDIA H100 (sm_90a) and nvcc.
+Phases, each of which fails the run on any error or mismatch:
 
 1. device: the card's name and count, and nvidia-smi's name and power
    limit;
@@ -89,12 +93,18 @@ and nvcc.  Phases, each of which fails the run on any error or mismatch:
    one partition (257 clock columns, d_pad = 512), on its bench's
    cascade (seed 7: every txn after an origin's first depends on two
    other origins' earlier phases).  The fixpoint kernel
-   (csrc/gate_kernels.cu) equals its plain version exactly on the
-   cascade's ring (2,048 rows), seeded rings of 2,048 and 4,096 slots
-   (dead slots, pings, blocked heads, gaps in pos, a serialised chain, a
-   first round without progress), a small one, and the repack path's
-   padded form.  A ring's bulk load, appends, retire and gathers run
-   under the sync check and equal the CPU's.  The bulk probe (2,048
+   (csrc/gate_kernels.cu) equals its plain version exactly, with one
+   launch a call, on the cascade's ring (2,048 rows), the bulk probe's
+   2,048-round chain, cascades of 12 and 20 dependencies a txn (more
+   than the kernel keeps witnesses for), seeded rings of 2,048 and 4,096
+   slots (dead slots, pings, blocked heads, gaps in pos, a serialised
+   chain, a first round without progress), a small one, the edges of
+   its launch geometry (one row, 256 and 257 rows, a short last CTA, all
+   rows dead, all pings, d = 16,384 on one CTA and on sixteen; odd
+   widths, and rows 8 bytes off 16, where a lane loads a column at a
+   time; tables or rows' state past shared memory) and the repack
+   path's padded form.  A ring's bulk load, appends, retire and
+   gathers run under the sync check and equal the CPU's.  The bulk probe (2,048
    txns pre-queued, one process_queues) in ring, repack and host modes
    drains with each origin in FIFO order and the host walk's applied
    set, clock and GST, and equals the CPU run (applied list in order,
@@ -104,10 +114,21 @@ and nvcc.  Phases, each of which fails the run on any error or mismatch:
    enqueue) with a fixed clock counts the CPU run's dispatches and
    bytes a txn in ring and repack modes.  Then the main path, timed:
    the bulk probe in three modes and the steady stream (real clock) in
-   four, the kernel's count set to 0 just before and required to equal
-   the fixpoint dispatches just after; the kernel and its plain version
-   on the cascade with CUDA events beside the bound; the kernel-only
-   rate on the dense cascade; peak device memory.
+   four, the kernel's counts (in all and by (n, d)) set to 0 just
+   before and the launches required to equal the fixpoint dispatches
+   just after.  Then times, each kernel's by two methods: device time
+   (CUDA events with the card held asleep until the timed launches are
+   queued, so the host's cost of issuing them stays out; that cost,
+   host µs a call, read alongside) and wall time (CUDA events around
+   launches issued back to back, the method of the other kernels' rows,
+   which the host's issue rate bounds for a short kernel).  The kernel
+   on the cascade beside its bound, its plain version and its floor
+   (the bound, a launch and a round's barriers for each evaluation of
+   the loop, from the barrier probe ``antidote_gate_probe`` at the same
+   launch shape); the kernel-only rate on the dense cascade; the kernel
+   at the bulk and steady runs' most frequent (n, d) shapes, and at
+   ``GATE["shapes"]``, on inputs copied from a replay of them; peak
+   device memory.
 
 The line before the last carries the nvidia-smi reading, the ones before
 it the ``kernels``, ``gate``, ``plane`` and ``types`` JSON objects; the
@@ -116,15 +137,18 @@ or without the package beside it, the script exits non-zero and prints
 no result.
 """
 
+import argparse
+import importlib
 import json
 import random
 import subprocess
 import sys
 import time
 import warnings
-from collections import deque
+from collections import Counter, deque
 from contextlib import contextmanager, nullcontext
 from dataclasses import fields, replace
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1438,8 +1462,11 @@ def phase_plane(device):
 
 #: the gate phase: BASELINE config 5's 256 origin DCs at one partition
 #: (257 clock columns, so d_pad = 512), driven by its probes' recipes,
-#: nothing cut
-GATE = dict(N=256, q_len=8, steady_q_len=4, kernel_iters=8,
+#: nothing cut; ``shapes``: steady shapes timed whenever the replay
+#: reaches them, beside the most frequent (the ranks vary between runs)
+GATE = dict(N=256, q_len=8, steady_q_len=4, top_shapes=6,
+            shapes=((8, 64), (256, 512)),
+            probe_rounds=1_000, sleep_cycles=20_000_000,
             source="BASELINE config 5, benches/config5_gst.py:113-290 "
                    "(gate_throughput, gate_steady_stream, "
                    "gate_device_kernel_rate; _gate_cascade, seed 7)")
@@ -1479,21 +1506,12 @@ def sync(device):
         torch.cuda.synchronize()
 
 
-def cascade_ring(N, q_len, device):
-    """The cascade as a bulk-loaded ring holds it: column 0 the own DC
-    at ``GATE_NOW``, column oi + 1 origin oi, every row live.  Returns
-    (the ring's rows, pvc) on ``device``."""
-    rows = gsynth.gate_cascade(N, q_len)
-    ss, origin, pos, ts = gsynth.dense_rows(rows, N)
-    d_pad = max(8, 1 << N.bit_length())
-    ss_pad = np.zeros((len(rows), d_pad), np.int64)
-    ss_pad[:, 1:N + 1] = ss
-    pvc = np.zeros(d_pad, np.int64)
-    pvc[0] = GATE_NOW
-    n = len(rows)
-    ring, pvc = ggk.ring_from_numpy(
-        (ss_pad, origin + 1, pos, ts, np.zeros(n, bool), np.ones(n, bool),
-         pvc), device)
+def bulk_ring(rows, N, device):
+    """Probe rows (``gsynth.gate_cascade``'s form) as a bulk-loaded ring
+    holds them (``gsynth.probe_state``).  Returns (the ring's rows, pvc)
+    on ``device``."""
+    ring, pvc = ggk.ring_from_numpy(gsynth.probe_state(rows, N, GATE_NOW),
+                                    device)
     return ggk.ring_rows(ring), pvc
 
 
@@ -1517,28 +1535,78 @@ def padded_form(arrays, device):
     return [torch.from_numpy(a).to(device) for a in out + (pvc,)]
 
 
+#: (name, ring_state arguments, options) of step 1's seeded rings; from
+#: "one row" on, the edges of the kernel's geometry
+#: (``ggk.fixpoint_geometry``)
+GATE_RINGS = (
+    ("mixed cap 2048", (21, 2048, 512), {}),
+    ("mixed cap 4096", (22, 4096, 512), {}),
+    ("dead and pings cap 2048", (23, 2048, 512), dict(dead=0.5, pings=0.4)),
+    ("chain cap 2048", (24, 2048, 512), dict(chain=True)),
+    ("stall cap 2048", (25, 2048, 512), dict(stall=True)),
+    ("small cap 64", (26, 64, 16), {}),
+    ("one row", (31, 1, 16), dict(dead=0.0)),
+    ("cap 256, the last one-CTA ring", (32, 256, 512), {}),
+    ("cap 257, the first cluster", (33, 257, 512), {}),
+    ("cap 1500, a short last CTA", (34, 1500, 512), {}),
+    ("all dead cap 2048", (35, 2048, 512), dict(dead=1.0)),
+    ("all pings cap 2048", (36, 2048, 512), dict(dead=0.0, pings=1.0)),
+    ("d 16384 cap 64, global tables", (37, 64, 16_384), {}),
+    ("d 16384 cap 2048", (38, 2048, 16_384), {}),
+    ("d 17 cap 64, odd width", (41, 64, 17), {}),
+    ("d 257 cap 512, odd width", (42, 512, 257), {}),
+    ("d 16383 cap 64, odd, global tables", (43, 64, 16_383), {}),
+    ("d 24001 cap 512, odd, global tables", (44, 512, 24_001), {}),
+    ("d 7001 cap 256, rows' state global", (45, 256, 7_001), {}),
+    ("d 23001 cap 257, rows' state global", (46, 257, 23_001), {}),
+)
+
+
+def unaligned(rows):
+    """The ring's rows with ``ss`` moved to a view one element into a
+    new buffer: every row starts 8 bytes past a 16-byte boundary."""
+    ss = rows[0]
+    flat = torch.empty(ss.numel() + 1, dtype=ss.dtype, device=ss.device)
+    return (flat[1:].view(ss.shape).copy_(ss),) + tuple(rows[1:])
+
+
 def gate_kernel_checks(device):
     """Step 1: the fixpoint kernel against its plain version, all five
-    outputs equal exactly, on the cascade, seeded ring states and the
-    repack path's padded form.  Returns (max abs err, the cascade's
-    inputs, applying rounds by input)."""
+    outputs equal exactly and one launch a call, on the cascade, the
+    bulk probe's 2,048-round chain, cascades of 12 and 20 dependencies a
+    txn, seeded ring states (``GATE_RINGS``) and the repack path's
+    padded form.  Returns (max abs err, the cascade's inputs, applying
+    rounds by input)."""
     N, q_len = GATE["N"], GATE["q_len"]
-    cases = {"cascade": cascade_ring(N, q_len, device)}
-    for name, args, kw in (
-            ("mixed cap 2048", (21, 2048, 512), {}),
-            ("mixed cap 4096", (22, 4096, 512), {}),
-            ("dead and pings cap 2048", (23, 2048, 512),
-             dict(dead=0.5, pings=0.4)),
-            ("chain cap 2048", (24, 2048, 512), dict(chain=True)),
-            ("stall cap 2048", (25, 2048, 512), dict(stall=True)),
-            ("small cap 64", (26, 64, 16), {})):
+    cases = {"cascade": bulk_ring(gsynth.gate_cascade(N, q_len), N, device),
+             "chain 2048 rounds": bulk_ring(
+                 gsynth.serial_chain(N, N * q_len), N, device),
+             # more dependencies a txn than a row keeps witnesses for
+             "cascade fanout 12": bulk_ring(
+                 gsynth.gate_cascade(N, q_len, fanout=12), N, device),
+             "cascade N 64 fanout 20": bulk_ring(
+                 gsynth.gate_cascade(64, q_len, fanout=20), 64, device)}
+    for name, args, kw in GATE_RINGS:
         ring, pvc = ggk.ring_from_numpy(gsynth.ring_state(*args, **kw),
                                         device)
         cases[name] = (ggk.ring_rows(ring), pvc)
+    for cap in (64, 512):                   # rows 8 bytes off 16
+        ring, pvc = ggk.ring_from_numpy(gsynth.ring_state(47, cap, 512),
+                                        device)
+        cases[f"unaligned cap {cap}"] = (unaligned(ggk.ring_rows(ring)), pvc)
     err, rounds = 0, {}
-    for name, (rows, pvc) in cases.items():
-        got = ggk.ring_fixpoint(*rows, pvc)
+
+    def one_launch(name, call):
+        l0 = ggk.ring_fixpoint.launches
+        got = call()
         torch.cuda.synchronize()
+        if ggk.ring_fixpoint.launches != l0 + 1:
+            fail(f"[gate] {name}: {ggk.ring_fixpoint.launches - l0} "
+                 f"launches for one call")
+        return got
+
+    for name, (rows, pvc) in cases.items():
+        got = one_launch(name, lambda: ggk.ring_fixpoint(*rows, pvc))
         want = ggk.ring_fixpoint_plain(*rows, pvc)
         e = max(max_err(a, b) for a, b in zip(got, want))
         if e:
@@ -1548,15 +1616,16 @@ def gate_kernel_checks(device):
                  f"{name}: {bad}, max abs err {e}")
         err = max(err, e)
         rounds[name] = int(got[1].max()) + 1
+        geo = ggk.fixpoint_geometry(*rows[0].shape)
         print(f"[gate] {name}: kernel = plain; {int(got[4])} of "
               f"{int(rows[5].sum())} live rows applied in {rounds[name]} "
-              f"rounds", flush=True)
+              f"rounds; {geo.ctas} CTAs, tables in {geo.tables} memory",
+              flush=True)
     for name, args, kw in (("padded mixed", (27, 2048, 512), {}),
                            ("padded chain", (28, 1024, 512),
                             dict(chain=True))):
         inputs = padded_form(gsynth.ring_state(*args, **kw), device)
-        got = dep.gate_fixpoint(*inputs)
-        torch.cuda.synchronize()
+        got = one_launch(name, lambda: dep.gate_fixpoint(*inputs))
         want = ggk.ring_fixpoint_plain(*inputs[:5], None, inputs[5])[:3]
         e = max(max_err(a, b) for a, b in zip(got, want))
         if e or bool(got[0][-1]):
@@ -1693,10 +1762,89 @@ def gate_ring_updates(device):
             [t.cpu() for t in ggk.ring_rows(ring.dev)])
 
 
-def phase_gate(device):
+def device_ms(fn, n, warmup=2):
+    """(Device ms of one call of ``fn``, host µs to issue one): ``fn`` is
+    a launch that never waits, and the card sleeps until all ``n`` calls
+    are queued (checked; else the sleep doubles), so the host's cost of
+    issuing them, timed on its own clock, stays out of the device time."""
+    for _ in range(warmup):
+        fn()
+    for attempt in range(6):
+        start, end = events()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(GATE["sleep_cycles"] << attempt)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        issue_us = (time.perf_counter() - t0) / n * 1e6
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / n, issue_us
+    fail(f"the card drained {n} queued calls before they were all issued")
+
+
+@contextmanager
+def fixpoint_samples(shapes, per_shape=4):
+    """Copies of the inputs of the first ``per_shape`` fixpoint calls at
+    each (n, d) of ``shapes`` made inside, by shape (the callers reach
+    the wrapper as ``gate_kernels.ring_fixpoint``; its counts go on)."""
+    got = {s: [] for s in shapes}
+    kernel = ggk.ring_fixpoint
+
+    def recorder(*args):
+        shape = (args[0].shape[0], args[6].shape[0])
+        if shape in got and len(got[shape]) < per_shape:
+            got[shape].append(tuple(None if a is None else a.clone()
+                                    for a in args))
+        return kernel(*args)
+
+    recorder.launches, recorder.shapes = kernel.launches, kernel.shapes
+    ggk.ring_fixpoint = recorder
+    try:
+        yield got
+    finally:
+        ggk.ring_fixpoint = kernel
+        kernel.launches = recorder.launches
+
+
+def checkout_fixpoint(root):
+    """``ring_fixpoint`` of the checkout at ``root`` (an earlier commit):
+    its package imported from there under its own name and its kernels
+    built from its own sources, so a call goes through that commit's own
+    wrapper and C entry point.  This process's package is put back in
+    ``sys.modules`` afterwards; the wrapper keeps its own modules."""
+    root = Path(root).resolve()
+    pkg = "antidote_tpu_torch"
+
+    def loaded():
+        return {k: m for k, m in sys.modules.items()
+                if k == pkg or k.startswith(pkg + ".")}
+
+    ours = loaded()
+    for k in ours:
+        del sys.modules[k]
+    sys.path.insert(0, str(root))
+    try:
+        mod = importlib.import_module(pkg + ".interdc.gate_kernels")
+        mod._cuda.build()
+    finally:
+        sys.path.remove(str(root))
+        for k in loaded():
+            del sys.modules[k]
+        sys.modules.update(ours)
+    if not Path(mod.__file__).resolve().is_relative_to(root):
+        fail(f"--parent {root}: imported {mod.__file__} instead")
+    return mod.ring_fixpoint
+
+
+def phase_gate(device, parent=None):
     """Phase 10: the causal dependency gate at BASELINE config 5's 256
-    DCs (``GATE``), with its checks.  Returns (its summary row, the
-    kernel's row)."""
+    DCs (``GATE``), with its checks.  ``parent`` (``checkout_fixpoint``):
+    an earlier commit's fixpoint wrapper, timed in turns with this one on
+    the same inputs.  Returns (its summary row, the kernel's row)."""
     N, q_len = GATE["N"], GATE["q_len"]
     cpu = torch.device("cpu")
     t_phase = time.perf_counter()
@@ -1762,16 +1910,19 @@ def phase_gate(device):
                  f"launches")
 
     # 5. the main path, timed: the bulk probe and the steady stream in
-    #    every mode, the kernel's count set to 0 just before, read after
+    #    every mode, the kernel's counts set to 0 just before, read after
     ggk.ring_fixpoint.launches = 0
+    ggk.ring_fixpoint.shapes.clear()
     c0 = gate_counters()
     bulk = {m: gate_bulk(m, device, cascade)
             for m in ("ring", "repack", "host")}
+    bulk_shapes = Counter(ggk.ring_fixpoint.shapes)
     steady = {}
     for mode in ("ring", "repack", "host", "adaptive"):
         gate_steady(mode, device, fixed_clock=False)        # warm-up
         steady[mode] = gate_steady(mode, device, fixed_clock=False)
     launches = ggk.ring_fixpoint.launches
+    steady_shapes = ggk.ring_fixpoint.shapes - bulk_shapes
     fixpoints = delta(c0, gate_counters())["fixpoint"]
     if launches != fixpoints or not launches:
         fail(f"[gate] {launches} kernel launches for {fixpoints} fixpoint "
@@ -1780,30 +1931,117 @@ def phase_gate(device):
            for s in steady.values()):
         fail("[gate] the steady modes applied different sets")
 
-    out = ggk.ring_fixpoint(*rows_c, pvc_c)
+    # 6. times, each kernel's by device time, host issue and wall time,
+    #    in turns with the parent's where one is given
+    kernels = {"change": ggk.ring_fixpoint}
+    if parent is not None:
+        kernels["parent"] = parent
+    order = (("parent", "change", "change", "parent") if parent is not None
+             else ("change",))
+    methods = ("device_ms", "issue_us", "wall_ms")
+
+    def turns(args, n):
+        """{kernel: {method: [its value in each of its turns]}} on
+        ``args``, the kernels in ``order``; the parent's outputs must
+        equal the change's."""
+        if parent is not None:
+            got, want = parent(*args), ggk.ring_fixpoint(*args)
+            if not all(a is b or torch.equal(a, b)
+                       for a, b in zip(got, want)):
+                fail("[gate] the parent's kernel and this one differ")
+        out = {k: {m: [] for m in methods} for k in kernels}
+        for k in order:
+            def call():
+                return kernels[k](*args)
+            dev, issue = device_ms(call, n)
+            for m, v in zip(methods, (dev, issue, cuda_ms(call, n))):
+                out[k][m].append(v)
+        return out
+
+    def mean(t, m="device_ms", k="change"):
+        return float(np.mean(t[k][m]))
+
+    # the cascade's fixpoint beside its bound and its floor: the bound,
+    # a launch, and a round's barriers for each evaluation of the loop
+    # (the barrier probe at the same launch shape; the plain version
+    # waits once an evaluation)
+    args_c = (*rows_c, pvc_c)
+    out = ggk.ring_fixpoint(*args_c)
     io = nbytes(*rows_c, pvc_c) + nbytes(*out[:4]) + 4     # + the count
-    ms = cuda_ms(lambda: ggk.ring_fixpoint(*rows_c, pvc_c), 50)
-    plain_ms = cuda_ms(lambda: ggk.ring_fixpoint_plain(*rows_c, pvc_c), 3)
+    bound_ms = io / HBM_BYTES_PER_S * 1e3
+    cascade_t = turns(args_c, 50)
+    ms, wall_ms = mean(cascade_t), mean(cascade_t, "wall_ms")
+    issue_us = mean(cascade_t, "issue_us")
+    plain_ms = cuda_ms(lambda: ggk.ring_fixpoint_plain(*args_c), 3)
+    box = [0]
+    with count_waits(box):
+        ggk.ring_fixpoint_plain(*args_c)
+    evaluations = box[0]
+    geo = ggk.fixpoint_geometry(*rows_c[0].shape)
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def probe(r):
+        return lambda: _cuda.call("antidote_gate_probe", geo.ctas,
+                                  geo.threads, geo.smem, r, stream)
+
+    launch_ms = device_ms(probe(0), 50)[0]
+    round_ms = (device_ms(probe(GATE["probe_rounds"]), 10)[0]
+                - launch_ms) / GATE["probe_rounds"]
+    floor_ms = bound_ms + launch_ms + evaluations * round_ms
+
     n = len(cascade)
     dense_args = [torch.from_numpy(a).to(device)
                   for a in gsynth.dense_rows(cascade, N)]
-    dense_args[4:4] = [torch.zeros(n, dtype=torch.bool, device=device)]
+    dense_args[4:4] = [torch.zeros(n, dtype=torch.bool, device=device),
+                       None]                # dep.gate_fixpoint's form
     dense_args.append(torch.zeros(N, dtype=torch.int64, device=device))
-    if not bool(dep.gate_fixpoint(*dense_args)[0].all()):
+    if not bool(ggk.ring_fixpoint(*dense_args)[0].all()):
         fail("[gate] the dense cascade did not drain")
-    kernel_ms = cuda_ms(lambda: dep.gate_fixpoint(*dense_args),
-                        GATE["kernel_iters"])
+    kernel_only = turns(dense_args, 20)
+    kernel_ms = mean(kernel_only)
+
+    # the kernel at the main path's most frequent shapes and at
+    # GATE["shapes"], on inputs the main path gave it (copied in a replay
+    # of its fixpoint modes)
+    top = {"bulk": bulk_shapes.most_common(GATE["top_shapes"]),
+           "steady": steady_shapes.most_common(GATE["top_shapes"])}
+    wanted = {s for t in top.values() for s, _ in t} | set(GATE["shapes"])
+    with fixpoint_samples(wanted) as samples:
+        for mode in ("ring", "repack"):
+            gate_bulk(mode, device, cascade)
+        for mode in ("ring", "repack", "adaptive"):
+            gate_steady(mode, device, fixed_clock=False)
+    by_shape = []
+    for (sn, sd), args_list in sorted(samples.items()):
+        if not args_list:                   # the replay took another path
+            continue
+        runs = [turns(a, 20) for a in args_list]
+        by_shape.append({
+            "n": sn, "d": sd, "ctas": ggk.fixpoint_geometry(sn, sd).ctas,
+            "launches_bulk": bulk_shapes[sn, sd],
+            "launches_steady": steady_shapes[sn, sd],
+            "samples": len(args_list),
+            "by_turn": {k: {m: [float(np.mean([r[k][m][t] for r in runs]))
+                                for t in range(len(runs[0][k][m]))]
+                            for m in methods} for k in kernels}})
     peak = torch.cuda.max_memory_allocated()
 
     row = {
         "type": "gate", "source": GATE["source"], "dcs": N,
         "clock_columns": N + 1, "d_pad": rows_c[0].shape[1],
         "bulk_txns": n, "steady_txns": N * GATE["steady_q_len"],
-        "fixpoint_ms": ms, "fixpoint_plain_ms": plain_ms,
-        "fixpoint_bound_ms": io / HBM_BYTES_PER_S * 1e3,
+        "fixpoint_ms": ms, "fixpoint_wall_ms": wall_ms,
+        "fixpoint_issue_us": issue_us,
+        "fixpoint_plain_ms": plain_ms, "fixpoint_bound_ms": bound_ms,
+        "fixpoint_floor_ms": floor_ms, "fixpoint_ctas": geo.ctas,
+        "fixpoint_tables": geo.tables, "evaluations": evaluations,
+        "probe_launch_ms": launch_ms, "probe_round_ms": round_ms,
+        "fixpoint_by_turn": cascade_t,
         "applying_rounds": rounds,
         "kernel_only_ms": kernel_ms,
         "kernel_only_txns_per_s": n / (kernel_ms / 1e3),
+        "kernel_only_by_turn": kernel_only,
+        "by_shape": by_shape,
         "bulk_txns_per_s": {m: r["txns_per_s"] for m, r in bulk.items()},
         "steady": {m: {k: s[k] for k in (
             "txns_per_s", "dispatches_per_txn", "h2d_bytes_per_txn",
@@ -1813,23 +2051,53 @@ def phase_gate(device):
         "max_memory_allocated": peak,
         "phase_s": time.perf_counter() - t_phase,
     }
+    shape_ms = {m: {f"{r['n']}x{r['d']}": float(np.mean(
+        r["by_turn"]["change"][m])) for r in by_shape}
+        for m in ("device_ms", "wall_ms")}
+    # ms: device time; wall_ms: launches issued back to back (the other
+    # kernels' method); issue_us: the host's cost of issuing one call
     kernel_row = {
         "name": "gate_fixpoint", "route": "cuda", "source": GATE_SOURCE,
         "replaces": GATE_REPLACES, "launches": launches,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": row["fixpoint_bound_ms"], "bound_by": "bytes",
-        "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+        "floor_ms": floor_ms, "wall_ms": wall_ms, "issue_us": issue_us,
+        "ms_by_shape": shape_ms["device_ms"],
+        "wall_ms_by_shape": shape_ms["wall_ms"],
     }
-    print(f"[gate] N={N}: fixpoint {ms:.4f} ms (bound "
-          f"{row['fixpoint_bound_ms']:.4f} ms by bytes), plain "
-          f"{plain_ms:.3f} ms, {rounds['cascade']} rounds; kernel-only "
-          f"{row['kernel_only_txns_per_s']:.0f} txns/s; bulk txns/s "
-          f"{row['bulk_txns_per_s']}; steady {row['steady']}; {launches} "
-          f"launches = fixpoint dispatches; peak {peak} B", flush=True)
+    if parent is not None:
+        kernel_row.update(
+            parent_ms=mean(cascade_t, k="parent"),
+            parent_wall_ms=mean(cascade_t, "wall_ms", "parent"),
+            parent_issue_us=mean(cascade_t, "issue_us", "parent"))
+    print(f"[gate] N={N}: fixpoint {ms:.4f} ms of device time, {wall_ms:.4f} "
+          f"ms a call issued back to back, {issue_us:.1f} us of the host's "
+          f"a call; {geo.ctas} CTAs; bound {bound_ms:.4f} ms by bytes; floor "
+          f"{floor_ms:.4f} ms (launch {launch_ms:.4f} ms + {evaluations} "
+          f"evaluations x {round_ms * 1e3:.3f} us of barriers); plain "
+          f"{plain_ms:.3f} ms; {rounds['cascade']} applying rounds; by turn "
+          f"{cascade_t}; kernel-only {kernel_ms:.4f} ms, "
+          f"{row['kernel_only_txns_per_s']:.0f} txns/s, by turn "
+          f"{kernel_only}", flush=True)
+    for r in by_shape:
+        print(f"[gate] shape {r['n']} x {r['d']} ({r['ctas']} CTAs): "
+              f"{r['launches_bulk']} bulk and {r['launches_steady']} steady "
+              f"launches; by turn {r['by_turn']}", flush=True)
+    print(f"[gate] bulk txns/s {row['bulk_txns_per_s']}; steady "
+          f"{row['steady']}; {launches} launches = fixpoint dispatches; "
+          f"peak {peak} B", flush=True)
     return row, kernel_row
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Smoke run of the port on "
+                                 "one GPU (the module's docstring).")
+    ap.add_argument("--gate-only", action="store_true",
+                    help="run phases 1, 2 and 10 (the gate) only")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of an earlier commit whose fixpoint "
+                    "wrapper phase 10 times in turns with this one")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1842,31 +2110,35 @@ def main():
 
     t0 = time.perf_counter()
     report = _cuda.build()
+    parent = None if args.parent is None else checkout_fixpoint(args.parent)
     print(f"[build] {time.perf_counter() - t0:.2f} s", flush=True)
     if report is not None:
         print(f"[build] ptxas:\n{report}", flush=True)
 
-    t0 = time.perf_counter()
-    errs = phase_kernels(device)
-    print(f"[kernels] {time.perf_counter() - t0:.1f} s; tolerance: exact "
-          f"equality", flush=True)
+    rows = []
+    if not args.gate_only:
+        t0 = time.perf_counter()
+        errs = phase_kernels(device)
+        print(f"[kernels] {time.perf_counter() - t0:.1f} s; tolerance: "
+              f"exact equality", flush=True)
 
-    st, frontier, by_path, summary = phase_superstep(device)
-    rows, summary["hybrid_read_ms"] = phase_times(st, frontier, by_path,
-                                                  errs)
-    print("[summary] " + json.dumps(
-        {"device": name, "power": smi, **summary}), flush=True)
-    del st
-    torch.cuda.empty_cache()
+        st, frontier, by_path, summary = phase_superstep(device)
+        rows, summary["hybrid_read_ms"] = phase_times(st, frontier, by_path,
+                                                      errs)
+        print("[summary] " + json.dumps(
+            {"device": name, "power": smi, **summary}), flush=True)
+        del st
+        torch.cuda.empty_cache()
 
-    types = [phase_type(t, device) for t in TYPE_SHAPES]
-    types += phase_ingest(device)
-    types.append(phase_rga(device))
-    plane = phase_plane(device)
-    gate, gate_kernel = phase_gate(device)
+        types = [phase_type(t, device) for t in TYPE_SHAPES]
+        types += phase_ingest(device)
+        types.append(phase_rga(device))
+        plane = phase_plane(device)
+    gate, gate_kernel = phase_gate(device, parent)
     rows.append(gate_kernel)
-    print(json.dumps({"types": types}))
-    print(json.dumps({"plane": plane}))
+    if not args.gate_only:
+        print(json.dumps({"types": types}))
+        print(json.dumps({"plane": plane}))
     print(json.dumps({"gate": gate}))
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -440,10 +440,28 @@ def test_plane_waits_once_a_flush_chunk_and_a_read(cuda_device):
     assert all(c.device.type == "cuda" for c in caps)
 
 
-#: (seed, cap, d, options) of the fixpoint's seeded ring states
+#: (seed, cap, d, options) of the fixpoint's seeded ring states; from
+#: the sixth on, the edges of the kernel's geometry
+#: (gate_kernels.fixpoint_geometry): one row; the last one-CTA ring and
+#: the first cluster; a last CTA with fewer rows than the others; all
+#: rows dead; all rows pings; a 2,048-round serial chain (the cluster's
+#: barriers over many rounds); d = 16,384 on one CTA (tables in global
+#: scratch) and on four (shared, near the limit)
 GATE_STATES = [(1, 64, 16, {}), (2, 2048, 512, {}),
                (3, 512, 512, dict(chain=True)), (4, 256, 8, dict(stall=True)),
-               (5, 1024, 64, dict(dead=0.5, pings=0.5))]
+               (5, 1024, 64, dict(dead=0.5, pings=0.5)),
+               (31, 1, 16, dict(dead=0.0)), (11, 256, 512, {}),
+               (12, 257, 512, {}), (13, 1500, 512, {}),
+               (14, 2048, 512, dict(dead=1.0)),
+               (15, 2048, 512, dict(dead=0.0, pings=1.0)),
+               (16, 2560, 512, dict(chain=True)),
+               (9, 64, 16_384, {}), (17, 512, 16_384, {}),
+               # odd widths: a lane loads one column at a time; one CTA,
+               # a 4-CTA cluster, the tables past shared memory on one
+               # CTA and on a cluster, the rows' state past it
+               (41, 64, 17, {}), (42, 512, 257, {}), (43, 64, 16_383, {}),
+               (44, 512, 24_001, {}), (45, 256, 7_001, {}),
+               (46, 257, 23_001, {})]
 
 
 @pytest.mark.cuda
@@ -462,6 +480,48 @@ def test_gate_fixpoint_kernel_matches_plain(cuda_device, case):
     want_every = ggk.ring_fixpoint_plain(*rows[:5], None, pvc)[:3]
     for g, w in zip(got + every, want + want_every):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [64, 512])
+def test_gate_fixpoint_kernel_unaligned_rows(cuda_device, cap):
+    """An even width whose rows start 8 bytes past a 16-byte boundary (a
+    view one element into its storage): a lane loads one column at a
+    time, on one CTA and on a 4-CTA cluster."""
+    ring, pvc = ggk.ring_from_numpy(gsynth.ring_state(47, cap, 512),
+                                    cuda_device)
+    rows = list(ggk.ring_rows(ring))
+    flat = torch.empty(rows[0].numel() + 1, dtype=torch.int64,
+                       device=cuda_device)
+    rows[0] = flat[1:].view(rows[0].shape).copy_(rows[0])
+    assert rows[0].data_ptr() % 16 == 8
+    n0 = ggk.ring_fixpoint.launches
+    got = ggk.ring_fixpoint(*rows, pvc)
+    torch.cuda.synchronize()
+    assert ggk.ring_fixpoint.launches == n0 + 1
+    for g, w in zip(got, ggk.ring_fixpoint_plain(*rows, pvc)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,q_len,fanout", [(16, 8, 9), (64, 8, 12),
+                                            (256, 8, 6)])
+def test_gate_fixpoint_kernel_wide_cascade(cuda_device, N, q_len, fanout):
+    """Cascades whose txns depend on more origins than a row keeps
+    witnesses (failing columns) for: one CTA, a 4-CTA and a 16-CTA
+    cluster."""
+    ring, pvc = ggk.ring_from_numpy(gsynth.probe_state(
+        gsynth.gate_cascade(N, q_len, fanout=fanout), N, 10**12),
+        cuda_device)
+    rows = ggk.ring_rows(ring)
+    n0 = ggk.ring_fixpoint.launches
+    got = ggk.ring_fixpoint(*rows, pvc)
+    torch.cuda.synchronize()
+    assert ggk.ring_fixpoint.launches == n0 + 1
+    want = ggk.ring_fixpoint_plain(*rows, pvc)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert bool(got[0].all())                 # the cascade drains
 
 
 def _gate_run(device, mode, rows, steady):

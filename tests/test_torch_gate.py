@@ -62,6 +62,12 @@ STATES = {
     "chain_c64_d8": lambda: synth.ring_state(6, 64, 8, chain=True),
     "chain_c32_d16": lambda: synth.ring_state(7, 32, 16, chain=True),
     "stall_c16_d8": lambda: synth.ring_state(8, 16, 8, stall=True),
+    # wider than any CTA's shared memory holds the kernel's tables
+    "mixed_c64_d16384": lambda: synth.ring_state(9, 64, 16_384),
+    # nine dependencies a txn: more failing columns than the kernel's
+    # witnesses
+    "wide_cascade_n16": lambda: synth.probe_state(
+        synth.gate_cascade(16, 4, fanout=9), 16, 10**12),
 }
 
 
@@ -87,6 +93,62 @@ def test_ring_fixpoint_matches_jax(state):
         assert int(got[1].max()) == int(got[4]) - 1 > 8  # a txn a round
     if state.startswith("stall"):
         assert int(got[4]) == 0 and torch.equal(got[2], pvc)
+
+
+@pytest.mark.parametrize("d", [8, 512, 16_384])
+@pytest.mark.parametrize("n", [1, 64, 256, 2_048, 4_096])
+def test_fixpoint_geometry(n, d):
+    """The kernel's launch from (n, d) alone: one CTA of a warp a row
+    (at least 2, at most 16 warps) up to the small ring's 256 rows, a
+    16-CTA cluster of 1,024 threads at the cascade's 2,048 and above;
+    each CTA's shared memory within the H100's 232,448 bytes.  Where
+    they fit, the whole clock (int64) and a CTA's column slice of both
+    parities of the blocked minima (int32) are in shared memory, with
+    both parities of the advance maxima (int64) there too on one CTA
+    and in 2 d words of global scratch in a cluster; all of them go to
+    global scratch where they do not fit (one CTA at d = 16,384).  A
+    CTA's rows' state (76 bytes a row) follows in shared memory, and
+    then no row scratch is allocated."""
+    g = tgk.fixpoint_geometry(n, d)
+    if n <= 256:
+        assert (g.ctas, g.threads) == (1, min(512, 32 * max(2, n)))
+    else:
+        assert (g.ctas, g.threads) == (16, 1024)
+    assert 0 < g.smem <= 232_448
+    cols = -(-d // g.ctas)                 # a CTA's slice of the columns
+    prog = 76 * -(-n // g.ctas)
+    assert g.row_scratch == 0
+    if g.ctas == 1 and d == 16_384:
+        assert g.tables == "global" and g.smem == 16 + prog
+        # every CTA's clock, then both parities of both tables
+        assert g.scratch == g.ctas * d + 2 * d + d
+    elif g.ctas == 1:
+        assert g.tables == "shared" and g.scratch == 0
+        assert g.smem == 16 + 8 * d + 2 * 8 * d + 2 * 4 * d + prog
+    else:
+        assert g.tables == "shared" and g.scratch == 2 * d
+        assert g.smem == 16 + 8 * d + 2 * 4 * cols + prog
+
+
+@pytest.mark.parametrize("n,d,ctas,tables", [(256, 7_000, 1, "shared"),
+                                             (257, 23_001, 4, "shared"),
+                                             (256, 7_300, 1, "global")])
+def test_fixpoint_geometry_rows_past_shared_memory(n, d, ctas, tables):
+    """Where the tables leave too little shared memory for a CTA's rows'
+    state, the rows go to 8 n words of global scratch and the CTA's
+    shared memory holds the tables alone; where the tables themselves
+    go global, the rows fit again."""
+    g = tgk.fixpoint_geometry(n, d)
+    assert (g.ctas, g.tables) == (ctas, tables)
+    assert g.smem <= 232_448
+    if tables == "shared":
+        cols = -(-d // ctas)
+        adv = 2 * 8 * d if ctas == 1 else 0
+        assert g.smem == 16 + 8 * d + adv + 2 * 4 * cols
+        assert g.smem + 76 * -(-n // ctas) > 232_448
+        assert g.row_scratch == 8 * n
+    else:
+        assert g.smem == 16 + 76 * n and g.row_scratch == 0
 
 
 def padded(seed, n, n_pad, d):
