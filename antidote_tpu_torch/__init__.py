@@ -6,7 +6,11 @@ at the GST into the base dot table, and read every key's element
 presence at a read vector clock — on one NVIDIA H100, through the
 hand-written CUDA kernels in ``csrc/orset_kernels.cu``; the shard store
 of every other CRDT type, the RGA sequence store, and the live device
-plane over them (``mat/device_plane.py``) in plain PyTorch.
+plane over them (``mat/device_plane.py``) in plain PyTorch; the causal
+dependency gate (``interdc/dep.py``, its fixpoint a CUDA kernel); and
+the single-DC transaction path that serves users (``api.AntidoteGPU``
+over the coordinator, the partition managers, the op log and the read
+serve plane), every partition's device plane on the card.
 
 The package imports ``torch`` and never ``jax``: it carries its own
 copies of what it needs from the JAX package.  Entry points that create

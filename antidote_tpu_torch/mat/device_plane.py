@@ -39,6 +39,7 @@ overflow.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from dataclasses import fields
@@ -55,6 +56,7 @@ from antidote_tpu_torch.mat.materializer import Payload
 from antidote_tpu_torch.obs import prof
 from antidote_tpu_torch.obs.events import recorder
 from antidote_tpu_torch.obs.spans import tracer
+from antidote_tpu_torch.runtime import COLLECTIVE_LOCK
 
 log = logging.getLogger(__name__)
 
@@ -131,6 +133,19 @@ def fused_read(splits: list) -> list:
         results.append(post(tuple(host[at:at + len(outs)])))
         at += len(outs)
     return results
+
+
+def collective_guard(dev):
+    """``COLLECTIVE_LOCK`` when ``dev`` is a mesh — the dispatch
+    launches a multi-device program — else a no-op context, so the
+    single-device paths keep their lock-free read concurrency.  ``dev``
+    is the ``closure.device`` discriminator the fused-read callers group
+    by.  No plane of the port is sharded over a mesh yet (ROADMAP §1
+    item 5): every capture publishes a ``torch.device``, so on one card
+    this is always the no-op."""
+    if isinstance(dev, torch.device):
+        return contextlib.nullcontext()
+    return COLLECTIVE_LOCK
 
 
 class ReadBelowBase(Exception):

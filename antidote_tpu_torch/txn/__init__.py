@@ -1,9 +1,10 @@
-"""Transactions (counterpart of antidote_tpu/txn/).
-
-The port has only ``manager.PartitionRetired`` so far, which the JAX
-package's ``__init__`` does not export; every export of that
-``__init__`` waits: ``HybridClock``, ``Coordinator``, ``Transaction``,
-``TransactionAborted``, ``TxnProperties``, ``TxnState``,
-``CertificationError`` and ``PartitionManager`` for ROADMAP §1 item 10
-(``txn/manager.py`` with the serve plane), ``Node`` for item 14.
-"""
+from antidote_tpu_torch.txn.clock import HybridClock  # noqa: F401
+from antidote_tpu_torch.txn.coordinator import (  # noqa: F401
+    Coordinator,
+    Transaction,
+    TransactionAborted,
+    TxnProperties,
+    TxnState,
+)
+from antidote_tpu_torch.txn.manager import CertificationError, PartitionManager  # noqa: F401
+from antidote_tpu_torch.txn.node import Node  # noqa: F401

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (antidote_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--gate-only] [--parent DIR]
+    python3 chip_smoke.py [--gate-only | --txn-only] [--parent DIR]
 
-``--gate-only`` runs phases 1, 2 and 10 alone; ``--parent DIR`` imports
+``--gate-only`` runs phases 1, 2 and 10 alone, ``--txn-only`` phases 1,
+2 and 11; ``--parent DIR`` imports
 the fixpoint wrapper (``ring_fixpoint``) of another checkout at DIR, an
 earlier commit, from its own package and sources, and phase 10 times
 that kernel in turns with this one on the same inputs.  Run from the
@@ -128,21 +129,61 @@ Phases, each of which fails the run on any error or mismatch:
    launch shape); the kernel-only rate on the dense cascade; the kernel
    at the bulk and steady runs' most frequent (n, d) shapes, and at
    ``GATE["shapes"]``, on inputs copied from a replay of them; peak
-   device memory.
+   device memory;
+11. the single-DC transaction path (``TXN``): ``AntidoteGPU`` with
+   every partition's DevicePlane on the card, each leg in a fresh
+   temporary data directory.  First a 4,096-key, 4-partition tape of
+   2,000 single-thread txns of config 6's mix on the card and on the
+   CPU: every value read, the aborts and every key's final value equal.
+   Leg a: BASELINE config 6 as its bench's main runs its direct leg
+   (8 partitions, sync_log off, 2,048 keys a type; warm_keyspace, a
+   60-txn warm run, then 1 and 8 client threads of 1,500 txns: 80 %
+   read a counter, increment it and add to a set, 20 % read two
+   counters and a set).  Leg b: the same mix at 16 partitions of
+   262,144 keys of each type (BASELINE config 2's 1,048,576 cut by four:
+   filling them ran 3,387 updates/s on an H100's host, 619 s), with
+   device_key_capacity 65,536 and Config's defaults otherwise, after an
+   untimed fill in txns of 256 updates.
+   Leg c: BASELINE config 9's read stampede (1 partition, 8 readers, 6
+   hot keys, 40 rounds) with the serve plane on and off.  Checks: every
+   plane's state on the card; no record at ERROR from a logger under
+   ``antidote_tpu_torch`` (the flusher, the fused reads and the serve
+   plane log a device failure and carry on); each timed run flushed to
+   the card (its reads the partitions' warm value caches answer at
+   these sizes, as in the JAX package); every key a timed run touched,
+   read at the tape's last commit VC with the value caches emptied, so
+   from the card's planes (read dispatches and device reads must
+   move), equals the smoke's own tape (counters the sum of committed
+   increments, sets the committed adds and the fill's element); the
+   card-against-CPU tape's final values are read the same way; in leg b
+   no op overflowed and no key was evicted; in leg c
+   both legs read the same values every round and the serve leg's
+   waiters a dispatch exceed 1.  Printed: txn/s, p50 and p99 ms and
+   aborts at 1 and 8 threads, read dispatches a txn, flushes and flush
+   ms, device read ms (the host's wait for a fold and its copy home,
+   timed by the smoke), fill rate, peak device memory, and the card's
+   busy share over 200 txns under torch.profiler; for leg c dispatches
+   a read, waiters a dispatch and the cache-hit %.
 
 The line before the last carries the nvidia-smi reading, the ones before
-it the ``kernels``, ``gate``, ``plane`` and ``types`` JSON objects; the
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
+it the ``kernels``, ``txn``, ``gate``, ``plane`` and ``types`` JSON
+objects; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside it, the script exits non-zero and prints
 no result.
 """
 
 import argparse
+import cProfile
 import importlib
 import json
+import logging
+import pstats
 import random
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import warnings
 from collections import Counter, deque
@@ -154,9 +195,11 @@ import numpy as np
 import torch
 
 from antidote_tpu_torch import _cuda, entry, stats
+from antidote_tpu_torch.api import AntidoteGPU, TransactionAborted
 from antidote_tpu_torch.clocks import VC
 from antidote_tpu_torch.config import Config
 from antidote_tpu_torch.crdt import get_type
+from antidote_tpu_torch.crdt.base import sorted_values
 from antidote_tpu_torch.interdc import dep
 from antidote_tpu_torch.interdc import gate_kernels as ggk
 from antidote_tpu_torch.interdc import synth as gsynth
@@ -2089,11 +2132,619 @@ def phase_gate(device, parent=None):
     return row, kernel_row
 
 
+#: the txn phase: the single-DC transaction path through AntidoteGPU's
+#: client API (coordinator, 2PC, op log, read serve plane, DevicePlane on
+#: the card).  Leg a is BASELINE config 6 as its bench runs it, leg b the
+#: same mix at a deployment's size, leg c config 9's read stampede;
+#: ``parity`` is the card-against-CPU tape; ``chunk`` the fill's
+#: transaction size (warm_keyspace's); ``profile_txns`` the profiled
+#: replay's length
+TXN = dict(
+    a=dict(n_partitions=8, keys=2_048, warm_txns=60, txns=1_500, threads=8,
+           source="BASELINE config 6, benches/config6_txn.py:393-413 "
+                  "(main's direct leg: n_partitions=8, sync_log=False, "
+                  "K = 2,048, warm_keyspace, a 60-txn warm run, 1 and 8 "
+                  "threads x 1,500 txns)"),
+    b=dict(n_partitions=16, keys=1 << 18, key_capacity=65_536, txns=1_500,
+           threads=8,
+           source="the reference's 16-partition ring (config/vars.config:5)"
+                  ", BASELINE config 2's keyspace (1,048,576 keys of each "
+                  "of counter_pn and set_aw) cut to 262,144 a type, "
+                  "config 6's mix; Config's defaults but "
+                  "device_key_capacity"),
+    c=dict(readers=8, hot=6, rounds=40, burst=33,
+           source="BASELINE config 9, benches/config9_read.py (build_db, "
+                  "run_leg, summary: n_partitions=1, device_lanes=64, "
+                  "device_gc_ops=192, device_key_capacity=4,096)"),
+    parity=dict(n_partitions=4, keys=4_096, txns=2_000),
+    chunk=256, profile_txns=200, fill_elem="warm")
+
+
+class ErrorRecords(logging.Handler):
+    """Every record at ERROR or above from a logger under the port: the
+    flusher's drain, the fused reads' fallback and the serve plane's
+    fused read log a device failure and carry on, so the phase fails on
+    any of them."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def check(self, what):
+        if self.records:
+            r = self.records[0]
+            fail(f"[txn] {what}: {len(self.records)} ERROR records from "
+                 f"the port, first {r.name}: {r.getMessage()} "
+                 f"{r.exc_text or ''}")
+
+
+class TxnTape:
+    """The smoke's own oracle of a node's committed tape: each counter
+    the sum of its committed increments, each set its committed adds
+    plus the fill's element; the join of every commit VC."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.counter = {}
+        self.sets = {}
+        self.vc = VC()
+
+    def commit(self, vc, c_key=None, s_key=None, elem=None):
+        with self.lock:
+            self.vc = self.vc.join(vc)
+            if c_key is not None:
+                self.counter[c_key] = self.counter.get(c_key, 0) + 1
+                self.sets.setdefault(s_key, set()).add(elem)
+
+    def expected(self, key, type_name):
+        if type_name == "counter_pn":
+            return self.counter.get(key, 0)
+        return sorted_values(self.sets.get(key, set())
+                             | {TXN["fill_elem"]})
+
+
+def txn_fill(db, K, tape, read_back=True):
+    """benches/config6_txn.py's warm_keyspace: every key of both types
+    written once (an increment of 0, an add of the fill's element) in
+    transactions of ``chunk`` updates, and, with ``read_back``, read
+    back.  Returns the updates' count."""
+    chunk = TXN["chunk"]
+    for lo in range(0, K, chunk):
+        ks = range(lo, min(lo + chunk, K))
+        ct = db.update_objects_static(None, [
+            ((f"c{k}", "counter_pn", "bucket"), "increment", 0)
+            for k in ks])
+        ct2 = db.update_objects_static(ct, [
+            ((f"s{k}", "set_aw", "bucket"), "add", TXN["fill_elem"])
+            for k in ks])
+        tape.commit(ct2)
+        if not read_back:
+            continue
+        db.read_objects_static(None, [
+            (f"c{k}", "counter_pn", "bucket") for k in ks])
+        db.read_objects_static(None, [
+            (f"s{k}", "set_aw", "bucket") for k in ks])
+    return 2 * K
+
+
+def run_threads(worker, n_threads):
+    """Runs ``worker(tid)`` on ``n_threads`` threads; re-raises the first
+    worker error after the join.  Returns the wall seconds."""
+    errs = []
+
+    def guarded(tid):
+        try:
+            worker(tid)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=guarded, args=(t,))
+               for t in range(n_threads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    dt = time.perf_counter() - t0
+    if errs:
+        raise errs[0]
+    return dt
+
+
+def txn_mix(db, n_threads, txns, K, seed, tape, touched=None, kinds=None,
+            reads=None):
+    """benches/config6_txn.py's run_direct, the same draws in the same
+    order: ``n_threads`` client threads of ``txns`` interactive
+    transactions each, 80 % update txns (read a counter, increment it,
+    add an element to a set), 20 % read txns (two counters and a set),
+    keys uniform over K.  Commits go to ``tape``, the keys a txn touched
+    to ``touched``; with one thread ``kinds`` gets each txn's read
+    dispatches by kind and ``reads`` every value read.  Returns (wall
+    seconds, latencies of the committed txns, aborts)."""
+    lat, aborts = [], [0]
+    lock = threading.Lock()
+    reg = stats.registry
+
+    def worker(tid):
+        rng = np.random.default_rng(seed + tid)
+        my_lat, my_keys = [], set()
+        for _ in range(txns):
+            c_key = (f"c{rng.integers(0, K)}", "counter_pn", "bucket")
+            s_key = (f"s{rng.integers(0, K)}", "set_aw", "bucket")
+            t0 = time.perf_counter()
+            d0 = reg.read_dispatches.value()
+            elem = None
+            try:
+                tx = db.start_transaction()
+                if rng.random() < 0.8:
+                    got = db.read_objects([c_key], tx)
+                    elem = b"e%d" % int(rng.integers(8))
+                    db.update_objects([(c_key, "increment", 1),
+                                       (s_key, "add", elem)], tx)
+                    objs = [c_key, s_key]
+                else:
+                    objs = [c_key, s_key, (f"c{rng.integers(0, K)}",
+                                           "counter_pn", "bucket")]
+                    got = db.read_objects(objs, tx)
+                vc = db.commit_transaction(tx)
+            except TransactionAborted:
+                with lock:
+                    aborts[0] += 1
+                continue
+            my_lat.append(time.perf_counter() - t0)
+            my_keys.update((o[0], o[1]) for o in objs)
+            if elem is None:
+                tape.commit(vc)
+            else:
+                tape.commit(vc, c_key[0], s_key[0], elem)
+            if kinds is not None:
+                kinds["read" if elem is None else "update"].append(
+                    reg.read_dispatches.value() - d0)
+            if reads is not None:
+                reads.append(got)
+        with lock:
+            lat.extend(my_lat)
+            if touched is not None:
+                touched.update(my_keys)
+
+    dt = run_threads(worker, n_threads)
+    return dt, lat, aborts[0]
+
+
+def check_tape(what, db, tape, keys):
+    """Every key of ``keys`` read through read_objects_static at the
+    tape's last commit VC equals the oracle.  The partitions' value
+    caches are emptied first, so the values come from the device planes'
+    folds (the caches answer the mix's reads: checked through them, the
+    planes' state would go unchecked); the check must read from the
+    device.  Returns {key: value}."""
+    keys = sorted(keys)
+    for pm in db.node.partitions:
+        with pm._lock:
+            pm._val_cache.clear()
+    c0 = txn_counts()
+    got = {}
+    for lo in range(0, len(keys), TXN["chunk"]):
+        part = keys[lo:lo + TXN["chunk"]]
+        vals, _ = db.read_objects_static(
+            tape.vc, [(k, tn, "bucket") for k, tn in part])
+        got.update(zip(part, vals))
+    c = {k: v - c0[k] for k, v in txn_counts().items()}
+    if c["dispatches"] == 0 or c["dev_reads"] == 0:
+        fail(f"[txn] {what}: the check read nothing from the device "
+             f"({c['dispatches']} read dispatches, {c['dev_reads']} device "
+             f"reads)")
+    bad = [k for k in keys if got[k] != tape.expected(*k)]
+    if bad:
+        k = bad[0]
+        fail(f"[txn] {what}: {len(bad)} of {len(keys)} keys differ from "
+             f"the committed tape, first {k}: {got[k]!r} against "
+             f"{tape.expected(*k)!r}")
+    return got
+
+
+def txn_planes(db, device_type):
+    """Fails unless every state tensor of every partition's plane (map
+    sub-planes and RGA documents included) is on ``device_type``."""
+    for pm in db.node.partitions:
+        for tn, p in pm.device.planes.items():
+            subs = p._all_planes() if isinstance(
+                p, device_plane.MapPlane) else [p]
+            for sub in subs:
+                sts = sub.st.values() if isinstance(sub.st, dict) \
+                    else [sub.st]
+                for st in sts:
+                    for f in fields(st):
+                        v = getattr(st, f.name)
+                        if isinstance(v, torch.Tensor) and \
+                                v.device.type != device_type:
+                            fail(f"[txn] partition {pm.partition} {tn}."
+                                 f"{f.name} on {v.device}")
+
+
+#: host seconds of each device read's round trip, appended by the
+#: wrappers ``device_read_timers`` installs
+READ_TIMES = []
+
+
+def timed_closure(cl):
+    """``cl``, a plane's read capture, with its run timed into
+    READ_TIMES; its ``split`` and ``device`` kept for fused_read."""
+    def run():
+        t0 = time.perf_counter()
+        try:
+            return cl()
+        finally:
+            READ_TIMES.append(time.perf_counter() - t0)
+
+    for attr in ("split", "device"):
+        if hasattr(cl, attr):
+            setattr(run, attr, getattr(cl, attr))
+    return run
+
+
+@contextmanager
+def device_read_timers(db):
+    """Times each device read's host round trip on ``db`` (the wait for
+    the card's fold, the copy home and the host CRDT state): every
+    ``fused_read`` call, and every capture closure a plane returns when
+    it runs alone.  Neither package observes ``device_read_latency`` on
+    the transaction path: the partition manager captures folds through
+    the planes' ``read_begin``/``read_many_begin``, not
+    ``DevicePlane.read``."""
+    for pm in db.node.partitions:
+        for pl in pm.device.planes.values():
+            for name in ("read_begin", "read_many_begin"):
+                def begin(keys, vc, _o=getattr(pl, name)):
+                    cl = _o(keys, vc)
+                    return cl if cl is dict else timed_closure(cl)
+
+                setattr(pl, name, begin)
+    fused = device_plane.fused_read
+
+    def timed_fused(splits):
+        t0 = time.perf_counter()
+        try:
+            return fused(splits)
+        finally:
+            READ_TIMES.append(time.perf_counter() - t0)
+
+    device_plane.fused_read = timed_fused
+    try:
+        yield
+    finally:
+        device_plane.fused_read = fused
+
+
+def txn_counts():
+    reg = stats.registry
+    fl = reg.device_flush_latency
+    return dict(dispatches=reg.read_dispatches.value(),
+                flushes=fl.count, flush_s=fl._sum,
+                dev_reads=len(READ_TIMES), dev_read_s=sum(READ_TIMES),
+                groups=reg.read_serve_groups.value(),
+                waiters=reg.read_serve_waiters.value(),
+                hits=reg.read_cache_hits.value(),
+                misses=reg.read_cache_misses.value())
+
+
+def txn_timed(leg, db, K, tape, shp):
+    """The leg's timed runs (1 thread, then ``threads``) of the mix, each
+    of which must have flushed to the card (their own reads the
+    partitions' warm value caches answer wherever they hold every key:
+    reads and dispatches are reported as they come); the profiled
+    replays (``txn_busy``); then every key the timed runs touched
+    against the tape, read from the device planes (``check_tape``).
+    Returns the rows."""
+    out, touched = {}, set()
+    for n_threads, seed in ((1, 1), (shp["threads"], 2)):
+        kinds = {"update": [], "read": []} if n_threads == 1 else None
+        c0 = txn_counts()
+        torch.cuda.reset_peak_memory_stats()
+        dt, lat, aborts = txn_mix(db, n_threads, shp["txns"], K, seed,
+                                  tape, touched, kinds)
+        torch.cuda.synchronize()
+        c = {k: v - c0[k] for k, v in txn_counts().items()}
+        if c["flushes"] == 0:
+            fail(f"[txn] leg {leg}, {n_threads} threads: no flush to the "
+                 f"device")
+        lat_ms = np.asarray(lat) * 1e3
+        row = dict(
+            txn_per_s=len(lat) / dt, p50_ms=float(np.percentile(lat_ms, 50)),
+            p99_ms=float(np.percentile(lat_ms, 99)), committed=len(lat),
+            aborts=aborts, read_dispatches_per_txn=c["dispatches"] / len(lat),
+            flushes=c["flushes"],
+            flush_ms=c["flush_s"] * 1e3 / max(c["flushes"], 1),
+            device_reads=c["dev_reads"],
+            device_read_ms=c["dev_read_s"] * 1e3 / max(c["dev_reads"], 1),
+            cache_hits=c["hits"], cache_misses=c["misses"],
+            peak_memory=torch.cuda.max_memory_allocated())
+        if kinds is not None:
+            row["read_dispatches_per_read_txn"] = float(
+                np.mean(kinds["read"]))
+            row["read_dispatches_per_update_txn"] = float(
+                np.mean(kinds["update"]))
+        out[f"threads_{n_threads}"] = row
+        print(f"[txn] leg {leg}, {n_threads} threads: "
+              f"{row['txn_per_s']:.0f} txn/s, p50 {row['p50_ms']:.3f} ms, "
+              f"p99 {row['p99_ms']:.3f} ms, {aborts} aborts; "
+              f"{row['read_dispatches_per_txn']:.3f} read dispatches a "
+              f"txn, {c['flushes']} flushes of {row['flush_ms']:.3f} ms, "
+              f"device read {row['device_read_ms']:.3f} ms", flush=True)
+    out["profile"] = txn_busy(db, K, tape)
+    t0 = time.perf_counter()
+    check_tape(f"leg {leg}", db, tape, touched)
+    out["checked"] = dict(keys=len(touched), seconds=time.perf_counter() - t0)
+    print(f"[txn] leg {leg}: {len(touched)} keys read from the card equal "
+          f"the tape; busy share {out['profile']['busy_share']}", flush=True)
+    return out
+
+
+def txn_busy(db, K, tape):
+    """The card's busy share over ``profile_txns`` txns of the mix on one
+    thread, under torch.profiler (as the RGA phase measures it), and the
+    host's functions by their own time over as many more, under
+    cProfile."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        txn_mix(db, 1, TXN["profile_txns"], K, 7, tape)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in ops) / 1e3
+    launches = sum(e.count for e in ops if e.self_device_time_total > 0)
+    n = TXN["profile_txns"]
+    # the host's side: the same mix once more under cProfile, its
+    # functions by their own time (every thread but this one unseen)
+    host = cProfile.Profile()
+    host.enable()
+    t0 = time.perf_counter()
+    txn_mix(db, 1, n, K, 8, tape)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    host.disable()
+    rows = sorted(pstats.Stats(host).stats.items(),
+                  key=lambda kv: -kv[1][2])[:10]
+    top = [(f"{Path(f).name}:{line}:{fn}", tt * 1e3 / n)
+           for (f, line, fn), (_cc, _nc, tt, _ct, _cl) in rows]
+    return dict(busy_share=device_ms / wall_ms, wall_ms=wall_ms,
+                device_ms=device_ms, txns=n, launches_per_txn=launches / n,
+                host_profiled_ms=host_ms, host_top_ms_per_txn=top)
+
+
+@contextmanager
+def txn_db(config, device=None, dc_id="dc1"):
+    """An AntidoteGPU on ``device`` in a fresh temporary data_dir, its
+    device reads timed, closed and removed afterwards."""
+    d = tempfile.mkdtemp(prefix="chip_smoke_txn_")
+    db = AntidoteGPU(dc_id=dc_id, config=config, data_dir=d, device=device)
+    try:
+        with device_read_timers(db):
+            yield db
+    finally:
+        db.close()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def txn_leg_a():
+    shp, K = TXN["a"], TXN["a"]["keys"]
+    tape = TxnTape()
+    with txn_db(Config(n_partitions=shp["n_partitions"],
+                       sync_log=False)) as db:
+        txn_planes(db, "cuda")
+        t0 = time.perf_counter()
+        n_fill = txn_fill(db, K, tape)
+        fill_s = time.perf_counter() - t0
+        txn_mix(db, shp["threads"], shp["warm_txns"], K, 999, tape)
+        row = dict(source=shp["source"], partitions=shp["n_partitions"],
+                   keys_per_type=K, fill_ops=n_fill, fill_s=fill_s,
+                   fill_ops_per_s=n_fill / fill_s,
+                   **txn_timed("a", db, K, tape, shp))
+        txn_planes(db, "cuda")
+    return row
+
+
+def txn_leg_b():
+    shp, K = TXN["b"], TXN["b"]["keys"]
+    tape = TxnTape()
+    with txn_db(Config(n_partitions=shp["n_partitions"],
+                       device_key_capacity=shp["key_capacity"])) as db:
+        txn_planes(db, "cuda")
+        overflow = [0]
+        for pm in db.node.partitions:
+            for tn in ("counter_pn", "set_aw"):
+                pl = pm.device.planes[tn]
+
+                def counted(rows, _o=pl._append_rows):
+                    ov = _o(rows)
+                    overflow[0] += int(ov.sum())
+                    return ov
+
+                pl._append_rows = counted
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        n_fill = txn_fill(db, K, tape)
+        torch.cuda.synchronize()
+        fill_s = time.perf_counter() - t0
+        fill_peak = torch.cuda.max_memory_allocated()
+        print(f"[txn] leg b fill: {n_fill} updates in {fill_s:.1f} s, "
+              f"{n_fill / fill_s:.0f} ops/s, peak {fill_peak} B",
+              flush=True)
+        row = dict(source=shp["source"], partitions=shp["n_partitions"],
+                   keys_per_type=K, key_capacity=shp["key_capacity"],
+                   fill_ops=n_fill, fill_s=fill_s,
+                   fill_ops_per_s=n_fill / fill_s, fill_peak_memory=fill_peak,
+                   **txn_timed("b", db, K, tape, shp))
+        txn_planes(db, "cuda")
+        evicted = sum(len(pm.device.host_only) for pm in db.node.partitions)
+        if overflow[0] or evicted:
+            fail(f"[txn] leg b: {overflow[0]} ops overflowed, {evicted} "
+                 f"keys evicted")
+        row.update(overflowed_ops=0, evicted_keys=0, capacity={
+            tn: sorted({pm.device.planes[tn].capacity
+                        for pm in db.node.partitions})
+            for tn in ("counter_pn", "set_aw")})
+    return row
+
+
+def stampede_leg(serve):
+    """benches/config9_read.py's run_leg on the card: a writer bursts
+    ``burst`` increments into each hot counter, then ``readers`` threads
+    read every hot key at once through read_objects_static; ``rounds``
+    stampede rounds, then as many steady rounds of repeat reads.
+    Returns (each round's values, stampede counts, steady counts)."""
+    shp = TXN["c"]
+    cfg = Config(n_partitions=1, metrics_port=None, read_serve=serve,
+                 device_lanes=64, device_gc_ops=192,
+                 device_key_capacity=4096)
+    keys = [(f"hot_{i:02d}", "counter_pn") for i in range(shp["hot"])]
+    values_log = []
+    with txn_db(cfg, dc_id="bench9") as db:
+        barrier = threading.Barrier(shp["readers"] + 1)
+        results = [None] * shp["readers"]
+        errors = []
+        stop = [False]
+
+        def reader(slot):
+            while True:
+                barrier.wait()
+                if stop[0]:
+                    return
+                try:
+                    results[slot], _vc = db.read_objects_static(None, keys)
+                except Exception as e:  # noqa: BLE001 — surfaced below
+                    errors.append(e)
+                barrier.wait()
+
+        threads = [threading.Thread(target=reader, args=(i,), daemon=True)
+                   for i in range(shp["readers"])]
+        for t in threads:
+            t.start()
+        try:
+            c0 = txn_counts()
+            for r in range(shp["rounds"]):
+                for key, _t in keys:
+                    for _ in range(shp["burst"]):
+                        db.update_objects_static(None, [
+                            ((key, "counter_pn"), "increment", 1)])
+                barrier.wait()
+                barrier.wait()
+                if errors:
+                    raise errors[0]
+                want = [shp["burst"] * (r + 1)] * shp["hot"]
+                if any(v != want for v in results):
+                    fail(f"[txn] leg c (serve={serve}) round {r}: "
+                         f"{results} against {want}")
+                values_log.append(list(results[0]))
+            c1 = txn_counts()
+            for _ in range(shp["rounds"]):
+                barrier.wait()
+                barrier.wait()
+                if errors:
+                    raise errors[0]
+            c2 = txn_counts()
+        except BaseException:
+            barrier.abort()
+            raise
+        stop[0] = True
+        barrier.wait()
+        for t in threads:
+            t.join(timeout=5)
+        txn_planes(db, "cuda")
+    return (values_log, {k: c1[k] - c0[k] for k in c0},
+            {k: c2[k] - c1[k] for k in c0})
+
+
+def txn_leg_c():
+    shp = TXN["c"]
+    torch.cuda.reset_peak_memory_stats()
+    legs = {}
+    for name, serve in (("serve", True), ("legacy", False)):
+        t0 = time.perf_counter()
+        vals, stampede, steady = stampede_leg(serve)
+        legs[name] = (vals, stampede, steady, time.perf_counter() - t0)
+    if legs["serve"][0] != legs["legacy"][0]:
+        fail("[txn] leg c: the serve and legacy legs read different values")
+    reads = shp["rounds"] * shp["readers"] * shp["hot"]
+    row = dict(source=shp["source"], readers=shp["readers"],
+               hot_keys=shp["hot"], rounds=shp["rounds"],
+               burst=shp["burst"], peak_memory=torch.cuda.max_memory_allocated())
+    for name, (_v, st, sd, secs) in legs.items():
+        if st["dispatches"] == 0 or st["dev_reads"] == 0:
+            fail(f"[txn] leg c ({name}): no read dispatch")
+        row[name] = dict(
+            dispatches=st["dispatches"],
+            dispatches_per_read=st["dispatches"] / reads,
+            waiters_per_dispatch=st["waiters"] / st["groups"]
+            if st["groups"] else 0.0,
+            hit_pct=100.0 * sd["hits"] / max(sd["hits"] + sd["misses"], 1),
+            device_reads=st["dev_reads"] + sd["dev_reads"],
+            device_read_ms=(st["dev_read_s"] + sd["dev_read_s"]) * 1e3
+            / max(st["dev_reads"] + sd["dev_reads"], 1),
+            seconds=secs)
+    if not row["serve"]["waiters_per_dispatch"] > 1:
+        fail(f"[txn] leg c: {row['serve']['waiters_per_dispatch']} waiters "
+             f"a dispatch on the serve leg")
+    print(f"[txn] leg c: serve {row['serve']}, legacy {row['legacy']}",
+          flush=True)
+    return row
+
+
+def txn_parity(device):
+    """A seeded single-thread tape at ``parity``'s size on the card and on
+    the CPU: every value read, the aborts and every key's final value
+    must be equal."""
+    shp, K = TXN["parity"], TXN["parity"]["keys"]
+    runs = []
+    for dev in (None, "cpu"):
+        tape, reads, touched = TxnTape(), [], set()
+        with txn_db(Config(n_partitions=shp["n_partitions"],
+                           sync_log=False), dev) as db:
+            txn_fill(db, K, tape)
+            _dt, lat, aborts = txn_mix(db, 1, shp["txns"], K, 3, tape,
+                                       touched, reads=reads)
+            final = check_tape(f"parity on {dev or device}", db, tape,
+                               {(f"{p}{k}", tn) for k in range(K)
+                                for p, tn in (("c", "counter_pn"),
+                                              ("s", "set_aw"))})
+        runs.append((reads, aborts, final))
+    if runs[0] != runs[1]:
+        fail("[txn] the card's tape differs from the CPU's")
+    return dict(keys=K, partitions=shp["n_partitions"], txns=shp["txns"],
+                reads=len(runs[0][0]), aborts=runs[0][1])
+
+
+def phase_txn(device):
+    """The txn phase: legs a, b and c on AntidoteGPU(device=None) and the
+    card-against-CPU tape, with every check.  Returns its JSON row."""
+    errors = ErrorRecords()
+    port_log = logging.getLogger("antidote_tpu_torch")
+    port_log.addHandler(errors)
+    try:
+        t0 = time.perf_counter()
+        row = {"parity": txn_parity(device)}
+        errors.check("card against CPU")
+        for leg, run in (("a", txn_leg_a), ("b", txn_leg_b),
+                         ("c", txn_leg_c)):
+            row[leg] = run()
+            errors.check(f"leg {leg}")
+        row["seconds"] = time.perf_counter() - t0
+    finally:
+        port_log.removeHandler(errors)
+    return row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
                                  "one GPU (the module's docstring).")
     ap.add_argument("--gate-only", action="store_true",
                     help="run phases 1, 2 and 10 (the gate) only")
+    ap.add_argument("--txn-only", action="store_true",
+                    help="run phases 1, 2 and 11 (the txn path) only")
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of an earlier commit whose fixpoint "
                     "wrapper phase 10 times in turns with this one")
@@ -2116,7 +2767,8 @@ def main(argv=None):
         print(f"[build] ptxas:\n{report}", flush=True)
 
     rows = []
-    if not args.gate_only:
+    everything = not (args.gate_only or args.txn_only)
+    if everything:
         t0 = time.perf_counter()
         errs = phase_kernels(device)
         print(f"[kernels] {time.perf_counter() - t0:.1f} s; tolerance: "
@@ -2134,12 +2786,18 @@ def main(argv=None):
         types += phase_ingest(device)
         types.append(phase_rga(device))
         plane = phase_plane(device)
-    gate, gate_kernel = phase_gate(device, parent)
-    rows.append(gate_kernel)
+    if not args.txn_only:
+        gate, gate_kernel = phase_gate(device, parent)
+        rows.append(gate_kernel)
     if not args.gate_only:
+        txn = phase_txn(device)
+    if everything:
         print(json.dumps({"types": types}))
         print(json.dumps({"plane": plane}))
-    print(json.dumps({"gate": gate}))
+    if not args.txn_only:
+        print(json.dumps({"gate": gate}))
+    if not args.gate_only:
+        print(json.dumps({"txn": txn}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

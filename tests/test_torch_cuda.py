@@ -27,12 +27,16 @@ import torch
 
 from antidote_tpu_torch import entry
 from antidote_tpu_torch import stats
+from antidote_tpu_torch.api import AntidoteGPU
 from antidote_tpu_torch.clocks import VC
+from antidote_tpu_torch.config import Config
+from antidote_tpu_torch.crdt import get_type
 from antidote_tpu_torch.interdc import dep
 from antidote_tpu_torch.interdc import gate_kernels as ggk
 from antidote_tpu_torch.interdc import synth as gsynth
 from antidote_tpu_torch.mat import (device_plane, gpu_kernels, ingest,
                                     rga_kernel, rga_store, store, synth)
+from antidote_tpu_torch.txn.manager import read_many_fused
 
 DTYPES = [torch.int32, torch.int64]
 
@@ -616,3 +620,79 @@ def test_gate_ring_never_waits_and_fixpoint_waits_alike(cuda_device):
         waits.append(w[0] / (stats.registry.gate_dispatches.value(
             kind="fixpoint") - f0))
     assert waits[0] == waits[1] <= 2, waits
+
+
+def _txn_tape(device, data_dir, n=240, K=48):
+    """A seeded single-thread tape through AntidoteGPU on ``device``:
+    static updates, interactive txns that read then update, static
+    reads, over counters, add-wins sets and MV registers.  Returns every
+    value read and each key's final value."""
+    db = AntidoteGPU(config=Config(n_partitions=4, sync_log=False),
+                     data_dir=data_dir, device=device)
+    want = torch.device("cuda" if device is None else device).type
+    assert {pm.device.device.type for pm in db.node.partitions} == {want}
+    objs = [(f"{tn[0]}{k}", tn) for tn in ("counter_pn", "set_aw",
+                                           "register_mv") for k in range(K)]
+    rng = np.random.default_rng(11)
+    reads, clock = [], None
+    try:
+        for i in range(n):
+            picks = [objs[int(j)] for j in rng.choice(len(objs), 3,
+                                                      replace=False)]
+            ups = [(bo, "increment", int(rng.integers(1, 5)))
+                   if bo[1] == "counter_pn" else
+                   (bo, "add" if bo[1] == "set_aw" else "assign",
+                    b"e%d" % int(rng.integers(6))) for bo in picks]
+            if i % 3 == 0:
+                clock = db.update_objects_static(clock, ups)
+            elif i % 3 == 1:
+                tx = db.start_transaction(clock)
+                reads.append(db.read_objects(picks, tx))
+                db.update_objects(ups, tx)
+                clock = db.commit_transaction(tx)
+            else:
+                reads.append(db.read_objects_static(clock, picks)[0])
+        final = db.read_objects_static(clock, objs)[0]
+    finally:
+        db.close()
+    return reads, final
+
+
+@pytest.mark.cuda
+def test_txn_tape_on_card_matches_cpu(cuda_device, tmp_path):
+    """The single-DC transaction path with every partition's planes on
+    the card reads what it reads with them on the CPU."""
+    card = _txn_tape(None, str(tmp_path / "card"))
+    assert card == _txn_tape("cpu", str(tmp_path / "cpu"))
+    assert any(card[1])
+
+
+@pytest.mark.cuda
+def test_read_many_fused_one_dispatch_on_card(cuda_device, tmp_path):
+    """A read spanning four partitions and two types, every key cold in
+    the value cache, brings every fold home in one dispatch."""
+    db = AntidoteGPU(config=Config(n_partitions=4), device=None,
+                     data_dir=str(tmp_path / "d"))
+    try:
+        objs = [(f"c{k}", "counter_pn") for k in range(16)] + \
+            [(f"s{k}", "set_aw") for k in range(16)]
+        clock = db.update_objects_static(None, [
+            (bo, "increment", 3) if bo[1] == "counter_pn" else
+            (bo, "add", b"x") for bo in objs])
+        groups = {}
+        for key, tn in objs:
+            groups.setdefault(db.node.partition_of(key), []).append(
+                (key, tn))
+        assert len(groups) == 4
+        for pm in groups:
+            pm._val_cache.clear()
+        n0 = device_plane.read_dispatch_count()
+        got = read_many_fused(list(groups.items()), clock)
+        assert device_plane.read_dispatch_count() == n0 + 1
+        assert {bo: get_type(bo[1]).value(st) for bo, st in got.items()} \
+            == {bo: 3 if bo[1] == "counter_pn" else [b"x"] for bo in objs}
+        vals, _ = db.read_objects_static(clock, objs)
+        assert vals == [3 if tn == "counter_pn" else [b"x"]
+                        for _k, tn in objs]
+    finally:
+        db.close()

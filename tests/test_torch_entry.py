@@ -16,10 +16,12 @@ import torch_parity as tp
 from antidote_tpu.clocks import dense as jdense
 from antidote_tpu.mat import store as jstore
 from antidote_tpu_torch import entry
+from antidote_tpu_torch.api import AntidoteGPU
 from antidote_tpu_torch.config import Config
 from antidote_tpu_torch.interdc import dep
 from antidote_tpu_torch.mat import (convert, device_plane, rga_store,
                                     store)
+from antidote_tpu_torch.txn.node import Node
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -96,7 +98,9 @@ def test_import_leaves_jax_out():
             "antidote_tpu_torch.config, antidote_tpu_torch.stats, "
             "antidote_tpu_torch.obs.prof, antidote_tpu_torch.interdc.dep, "
             "antidote_tpu_torch.interdc.synth, antidote_tpu_torch.meta, "
-            "antidote_tpu_torch.oplog, antidote_tpu_torch.txn; "
+            "antidote_tpu_torch.oplog, antidote_tpu_torch.txn, "
+            "antidote_tpu_torch.api, antidote_tpu_torch.txn.node, "
+            "antidote_tpu_torch.mat.serve, antidote_tpu_torch.oplog.convert; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'antidote_tpu.')) or "
             "m == 'antidote_tpu']; print(bad); sys.exit(1 if bad else 0)")
@@ -123,8 +127,12 @@ def test_import_leaves_jax_out():
     lambda: device_plane.DevicePlane(),
     lambda: dep.DependencyGate(None, "dc", lambda: 0),
     lambda: dep.gate_from_config(None, "dc", lambda: 0, Config()),
+    lambda: AntidoteGPU(),
+    lambda: Node(),
 ])
-def test_no_device_raises_without_a_card(call, monkeypatch):
+def test_no_device_raises_without_a_card(call, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)     # Config's default data_dir is relative
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+    assert os.listdir(tmp_path) == []

@@ -1,11 +1,14 @@
 """The port's copies of the JAX package's host-only modules (vector
 clocks, config, CRDTs, the host materializer's payloads, the span tracer
 and flight recorder, the stats registry, the log records, the inter-DC
-wire format, the metadata sender, the GST fold and the stable metadata
-store) equal their sources line for line, but for the package name in
-their import statements, and so do the single classes and functions the
-port copied out of larger modules: a change on either side that is not
-carried over fails here."""
+wire format, the metadata sender, the GST fold, the stable metadata
+store, the hybrid clock, the commit hooks, the online probes, the op log
+with its native core, checkpoints and partition log, the host store,
+the partition manager, the read serve plane, the remote-call errors and
+the coordinator) equal their sources line for line, but for the package
+name in their import statements, and so do the single classes,
+functions and assignments the port copied out of larger modules: a
+change on either side that is not carried over fails here."""
 
 import ast
 import os
@@ -20,10 +23,17 @@ COPIES = ["clocks/vc.py", "config.py", "crdt/__init__.py", "crdt/base.py",
           "mat/materializer.py", "obs/events.py", "obs/spans.py",
           "stats.py", "oplog/records.py", "interdc/wire.py",
           "interdc/termcodec.py", "meta/sender.py", "meta/gossip.py",
-          "meta/stable_store.py"]
-#: (module, top-level class or function) copied alone
+          "meta/stable_store.py", "txn/clock.py", "hooks.py",
+          "obs/probe.py", "native/build.py", "native/oplog.cpp",
+          "oplog/log.py", "oplog/checkpoint.py", "oplog/partition.py",
+          "oplog/__init__.py", "mat/host_store.py", "txn/manager.py",
+          "mat/serve.py", "cluster/remote.py", "txn/coordinator.py",
+          "txn/__init__.py"]
+#: (module, top-level class, function or assigned name) copied alone
 EXCERPTS = [("txn/manager.py", "PartitionRetired"),
-            ("oplog/log.py", "_fsync_dir")]
+            ("oplog/log.py", "_fsync_dir"),
+            ("cluster/link.py", "_raise_remote"),
+            ("runtime.py", "COLLECTIVE_LOCK")]
 _IMPORT = re.compile(r"^(\s*(?:from|import) )antidote_tpu\b")
 
 
@@ -49,14 +59,17 @@ def _excerpt(pkg, rel, name):
     with open(path, encoding="utf-8") as f:
         text = f.read()
     for node in ast.parse(text).body:
-        if getattr(node, "name", None) == name:
+        names = [getattr(node, "name", None)] + [
+            getattr(t, "id", None) for t in getattr(node, "targets", ())]
+        if name in names:
             return ast.get_source_segment(text, node)
     raise AssertionError(f"{pkg}/{rel} has no {name}")
 
 
 @pytest.mark.parametrize("rel,name", EXCERPTS)
 def test_excerpt_equals_its_source(rel, name):
-    want = _excerpt("antidote_tpu", rel, name)
+    want = "\n".join(_IMPORT.sub(r"\1antidote_tpu_torch", line) for line
+                     in _excerpt("antidote_tpu", rel, name).split("\n"))
     assert _excerpt("antidote_tpu_torch", rel, name) == want
     if name == "PartitionRetired":     # antidote_tpu/txn/manager.py:48-55
         lines = _read("antidote_tpu", rel)[47:55]
