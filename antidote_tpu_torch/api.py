@@ -9,10 +9,9 @@ Transaction returned by start_transaction.
 
 Port of antidote_tpu/api.py: ``AntidoteGPU`` is ``AntidoteTPU`` with a
 ``device`` argument (None: the card, or raise; ``"cpu"`` runs the
-node's device planes on the CPU), passed to its ``Node``.
-``start_profiling``/``stop_profiling`` wait for the port's device
-profiler (ROADMAP §1 item 3).  Every other method is the JAX class's
-code.
+node's device planes on the CPU), passed to its ``Node``;
+``start_profiling`` captures a ``torch.profiler`` trace, not a JAX one.
+Every other method is the JAX class's code.
 """
 
 from __future__ import annotations
@@ -207,6 +206,19 @@ class AntidoteGPU:
                 f"multi-node DCs are not supported (got {others}); this "
                 "DC scales via partitions/device shards — connect "
                 "separate DCs with connect_to_dcs instead")
+
+    def start_profiling(self, log_dir: str) -> None:
+        """Begin a ``torch.profiler`` capture of the node's device work;
+        :meth:`stop_profiling` writes it into ``log_dir`` as a Chrome
+        trace."""
+        from antidote_tpu_torch.obs import prof
+
+        prof.start(log_dir)
+
+    def stop_profiling(self) -> str:
+        from antidote_tpu_torch.obs import prof
+
+        return prof.stop()
 
     def admin_status(self) -> dict:
         """Operator status snapshot (the antidote_console duty,

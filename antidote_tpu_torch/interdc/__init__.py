@@ -1,10 +1,10 @@
-"""Inter-DC replication (counterpart of antidote_tpu/interdc/).
+"""Inter-DC replication (reference §2.3: inter_dc_* modules).
 
-The port has the txn wire format (``wire.py``, ``termcodec.py``, copied
-verbatim) and the causal dependency gate (``dep.py`` over the device
-ring of ``gate_kernels.py``).  ``InProcBus`` (``transport.py``) and
-``DataCenter`` (``dc.py``, with ``sub_buf.py`` and ``tcp.py``: the
-pub/sub that feeds the gate) wait for ROADMAP §1 item 4.
+Txn stream pub/sub with opid-watermark gap repair, causal dependency
+gating, and DC membership — transport-agnostic (in-process bus for
+simulated DCs and tests; the C++ TCP transport for real deployments).
 """
 
 from antidote_tpu_torch.interdc.wire import InterDcTxn  # noqa: F401
+from antidote_tpu_torch.interdc.transport import InProcBus  # noqa: F401
+from antidote_tpu_torch.interdc.dc import DataCenter  # noqa: F401

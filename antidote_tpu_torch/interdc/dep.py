@@ -961,6 +961,7 @@ def ready_mask(queued_ss, queued_origin, partition_vc):
     return dense.ge(partition_vc, deps)
 
 
+@prof.kernel_span("interdc.dep")
 def gate_fixpoint(ss, origin, pos, ts, is_ping, pvc):
     """Device iterate-until-stable over the whole queued set: returns
     (applied bool[N], round int32[N], final partition VC int64[D]).

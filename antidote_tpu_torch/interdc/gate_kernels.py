@@ -52,6 +52,7 @@ import torch
 from antidote_tpu_torch import _cuda
 from antidote_tpu_torch.clocks import dense
 from antidote_tpu_torch.mat.device_plane import _upload
+from antidote_tpu_torch.obs.prof import kernel_span
 
 #: FIFO-position infinity: larger than any real queue position, small
 #: enough that +1 arithmetic cannot overflow int32
@@ -168,6 +169,7 @@ def _slots(slots: torch.Tensor, cap: int) -> torch.Tensor:
     return torch.where((slots >= 0) & (slots < cap), slots, cap).long()
 
 
+@kernel_span("interdc.dep")
 def ring_append(ss, origin, pos, ts, ping, live,
                 slots, u_ss, u_origin, u_pos, u_ts, u_ping):
     """Scatter a padded batch of arrivals into ring ``slots``, in place.
@@ -183,6 +185,7 @@ def ring_append(ss, origin, pos, ts, ping, live,
     return ss, origin, pos, ts, ping, live
 
 
+@kernel_span("interdc.dep")
 def ring_retire(live, slots):
     """Mark ``slots`` dead, in place (txns popped outside the ring
     replay: the host walk ran in between, or a wave aborted on
@@ -190,6 +193,7 @@ def ring_retire(live, slots):
     return live.index_fill_(0, _slots(slots, live.shape[0] - 1), False)
 
 
+@kernel_span("interdc.dep")
 def ring_gather(ss, origin, pos, ts, ping, idx, n_live: int, new_d: int):
     """Re-layout the ring through a device-side gather into new buffers:
     grow capacity (``idx`` longer than the ring), shrink it (lazy
@@ -278,6 +282,7 @@ def _check(ss, origin, pos, ts, ping, live, pvc):
             raise ValueError(f"ring tensors on {ss.device} and {t.device}")
 
 
+@kernel_span("interdc.dep")
 def ring_fixpoint(ss, origin, pos, ts, ping, live, pvc):
     """Iterate-until-stable over the LIVE ring rows — the same monotone
     cascade as :func:`antidote_tpu_torch.interdc.dep.gate_fixpoint`

@@ -115,6 +115,7 @@ def _host(tensors) -> list:
     return [t.numpy() for t in outs]
 
 
+@prof.kernel_span("mat.device_plane")
 def fused_read(splits: list) -> list:
     """Bring many planes' batched read folds to the host in ONE wait —
     the cross-partition read for a ring-placed node (reference: the

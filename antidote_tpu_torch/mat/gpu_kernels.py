@@ -30,6 +30,7 @@ import torch
 from antidote_tpu_torch import _cuda
 from antidote_tpu_torch.clocks import dense
 from antidote_tpu_torch.mat import kernels
+from antidote_tpu_torch.obs.prof import kernel_span
 
 _NSCAL = 6
 #: the kernels' compile-time bounds (kMaxL/kMaxE/kMaxD in
@@ -133,6 +134,7 @@ def orset_gc_packed_plain(dots, ops, valid, gst):
     return new_dots, (valid2d & ~stable).reshape(-1)
 
 
+@kernel_span("mat.pallas")
 def orset_read_packed(dots, ops, valid, base_vc, has_base, read_vc):
     """bool[K, E]: full-shard presence at ``read_vc`` in one pass over
     the packed rows.  A lane is included iff it is valid, its commit VC
@@ -176,6 +178,7 @@ def orset_fold_presence(dots, ops, mask):
     return out
 
 
+@kernel_span("mat.pallas")
 def orset_read_hybrid(dots, ops, valid, base_vc, has_base, read_vc):
     """bool[K, E]: like :func:`orset_read_packed`, with the inclusion
     mask computed by plain tensor ops and only the fold in the kernel."""
@@ -186,6 +189,7 @@ def orset_read_hybrid(dots, ops, valid, base_vc, has_base, read_vc):
     return orset_fold_presence(dots, ops, mask.reshape(-1))
 
 
+@kernel_span("mat.pallas")
 def orset_gc_packed(dots, ops, valid, gst):
     """(new_dots int[K, E, D], new_valid bool[K*L]): the store's GC fold
     in one pass.  A lane is stable iff it is valid and its commit VC <=
@@ -216,6 +220,7 @@ orset_gc_packed.launches = 0
 KERNELS = (orset_read_packed, orset_fold_presence, orset_gc_packed)
 
 
+@kernel_span("mat.pallas")
 def orset_read_fused(dots, elem_slot, is_add, dot_dc, dot_seq, obs_vv,
                      op_dc, op_ct, op_ss, valid, base_vc, has_base,
                      read_vc):

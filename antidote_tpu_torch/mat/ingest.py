@@ -25,6 +25,7 @@ import torch
 from antidote_tpu_torch import stats
 from antidote_tpu_torch.mat import store
 from antidote_tpu_torch.obs.spans import tracer
+from antidote_tpu_torch.obs.prof import kernel_span
 
 #: flush trigger kinds (the ``kind`` label of
 #: antidote_ingest_flushes_total): ``rows`` = the device_flush_ops
@@ -160,6 +161,7 @@ def split_packed(packed: torch.Tensor, ops_dtype):
     return key_idx, lane_off, rows
 
 
+@kernel_span("mat.ingest")
 def packed_append(st, packed: torch.Tensor,
                   active: torch.Tensor | None = None):
     """Apply one coalesced flush, in place: split the packed tensor's

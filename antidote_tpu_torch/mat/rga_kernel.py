@@ -41,6 +41,8 @@ from __future__ import annotations
 
 import torch
 
+from antidote_tpu_torch.obs.prof import kernel_span
+
 _I32MAX = 2**31 - 1
 
 
@@ -193,6 +195,7 @@ def _merge_impl(ins_lamport, ins_actor, ref_lamport, ref_actor, elem, valid,
                 deleted=deleted, subtree=subtree, parent=parent, uid=uid)
 
 
+@kernel_span("mat.rga")
 def rga_merge(ins_lamport, ins_actor, ref_lamport, ref_actor, elem, valid,
               del_lamport, del_actor, del_valid, actor_bits: int = 8):
     """Merge a full RGA op log in one shot.
@@ -216,6 +219,7 @@ def rga_merge(ins_lamport, ins_actor, ref_lamport, ref_actor, elem, valid,
     return r["doc"], r["n_visible"], r["rank"], r["visible"]
 
 
+@kernel_span("mat.rga")
 def rga_merge_full(ins_lamport, ins_actor, ref_lamport, ref_actor,
                    elem, valid, del_lamport, del_actor, del_valid,
                    actor_bits: int = 8):

@@ -60,6 +60,7 @@ from antidote_tpu_torch.mat import ingest, rga_kernel
 from antidote_tpu_torch.mat.rga_kernel import (
     _I32MAX, _lexsort2, _shift_down, argsort, pack_uid, searchsorted,
     set_drop)
+from antidote_tpu_torch.obs.prof import kernel_span
 
 _I64MAX = 2**63 - 1
 
@@ -170,6 +171,7 @@ def _put_at(dst, src, start, ok):
     return dst
 
 
+@kernel_span("mat.rga")
 def rga_append(st: RgaStoreState, ins_lamport, ins_actor, ref_lamport,
                ref_actor, elem, ins_dc, ins_ct, ins_ss,
                del_lamport, del_actor, del_dc, del_ct, del_ss,
@@ -244,6 +246,7 @@ _PK_LAM, _PK_ACT, _PK_RLAM, _PK_RACT, _PK_ELEM, _PK_DC, _PK_CT, \
     _PK_NSCAL = 0, 1, 2, 3, 4, 5, 6, 7
 
 
+@kernel_span("mat.rga")
 def rga_append_packed(st: RgaStoreState, packed, bp: int, n_ins, n_del):
     """:func:`rga_append` fed from ONE packed int64 tensor on the state's
     device: rows ``[:bp]`` are the (padded) insert lanes, rows ``[bp:]``
@@ -307,6 +310,7 @@ def _bsearch_hit(sorted_arr, q):
     return (p < n) & (sorted_arr[c] == q), c
 
 
+@kernel_span("mat.rga")
 def rga_read(st: RgaStoreState, read_vc):
     """Materialize the full RGA state at dense snapshot ``read_vc``
     (int64[D]): merge the snapshot-included window forest and splice it
@@ -417,6 +421,7 @@ def rga_read(st: RgaStoreState, read_vc):
     return lam, act, elem_out, vis, n
 
 
+@kernel_span("mat.rga")
 def rga_read_doc(st: RgaStoreState, read_vc):
     """Visible document only: (doc int32[PB+NW] padded with -1,
     n_visible) — the bench-facing view over :func:`rga_read`."""
@@ -488,6 +493,7 @@ def _compact(order, n_new, size):
     return go
 
 
+@kernel_span("mat.rga")
 def rga_fold(st: RgaStoreState, gst):
     """Fold window ops whose commit VC <= the dense GST (int64[D]) into
     the base: one full merge over base + stable window (tombstoned

@@ -35,6 +35,7 @@ import torch
 from antidote_tpu_torch import resolve_device
 from antidote_tpu_torch.clocks import dense
 from antidote_tpu_torch.mat import gpu_kernels, kernels
+from antidote_tpu_torch.obs.prof import kernel_span
 
 # packed op-tensor columns (OR-Set): scalars, then obs VV, then op SS
 _ELEM, _ISADD, _DOTDC, _DOTSEQ, _OPDC, _OPCT, _NSCAL = 0, 1, 2, 3, 4, 5, 6
@@ -273,6 +274,7 @@ def _gc_bitmap(st, stable: torch.Tensor) -> torch.Tensor:
     return (st.valid2d & ~stable).reshape(-1)
 
 
+@kernel_span("mat.store")
 def orset_append(
     st: OrsetShardState,
     key_idx: torch.Tensor,   # int[B]
@@ -303,6 +305,7 @@ def _orset_gc_plain(st: OrsetShardState,
     return _with_base(st, gst, valid, dots=dots)
 
 
+@kernel_span("mat.store")
 def orset_gc(st: OrsetShardState, gst: torch.Tensor) -> OrsetShardState:
     """Fold every ring op with commit VC <= GST into the base snapshot
     and free its lane, as plain tensor ops (the reference path; the
@@ -319,6 +322,7 @@ def orset_gc(st: OrsetShardState, gst: torch.Tensor) -> OrsetShardState:
     return _orset_gc_plain(st, gst)
 
 
+@kernel_span("mat.store")
 def orset_read(st: OrsetShardState, read_vc: torch.Tensor) -> torch.Tensor:
     """bool[K, E]: element presence for every key at ``read_vc`` as plain
     tensor ops (base + included ring ops).  Requires read_vc >= base_vc
@@ -360,6 +364,7 @@ def orset_gc_full(st: OrsetShardState, gst: torch.Tensor,
     return _with_base(st, gst, valid, dots=dots)
 
 
+@kernel_span("mat.store")
 def orset_read_keys(st: OrsetShardState, key_idx: torch.Tensor,
                     read_vc: torch.Tensor) -> torch.Tensor:
     """int[B, E, D]: folded live-dot tables for just the requested keys
@@ -374,6 +379,7 @@ def orset_read_keys(st: OrsetShardState, key_idx: torch.Tensor,
         mask)
 
 
+@kernel_span("mat.store")
 def orset_purge_keys(st: OrsetShardState,
                      key_idx: torch.Tensor) -> OrsetShardState:
     """Free every ring lane and zero the base rows of the given keys, in
@@ -440,6 +446,7 @@ def orset_grow(st: OrsetShardState, n_keys: int | None = None,
 # only its observed VV.
 
 
+@kernel_span("mat.store")
 def mvreg_gc(st: OrsetShardState, gst: torch.Tensor) -> OrsetShardState:
     """Fold stable assigns into the base dot table (the stability
     contract of :func:`orset_gc`).  Consumes ``st``."""
@@ -449,6 +456,7 @@ def mvreg_gc(st: OrsetShardState, gst: torch.Tensor) -> OrsetShardState:
     return _with_base(st, gst, _gc_bitmap(st, stable), dots=dots)
 
 
+@kernel_span("mat.store")
 def mvreg_read(st: OrsetShardState, read_vc: torch.Tensor) -> torch.Tensor:
     """int[K, E, D]: live value-slot dot tables at ``read_vc``."""
     return kernels.mvreg_apply(st.dots, st.elem_slot, st.dot_dc,
@@ -456,6 +464,7 @@ def mvreg_read(st: OrsetShardState, read_vc: torch.Tensor) -> torch.Tensor:
                                _read_mask(st, read_vc))
 
 
+@kernel_span("mat.store")
 def mvreg_read_keys(st: OrsetShardState, key_idx: torch.Tensor,
                     read_vc: torch.Tensor) -> torch.Tensor:
     """int[B, E, D]: live dot tables for just the requested keys (the
@@ -542,6 +551,7 @@ def lww_shard_init(n_keys: int, n_lanes: int, n_dcs: int,
         n_lanes=L)
 
 
+@kernel_span("mat.store")
 def lww_append(st: LwwShardState, key_idx, lane_off, ts, tie, val, op_dc,
                op_ct, op_ss, active: torch.Tensor | None = None):
     """Scatter B assigns into free ring lanes, in place (the contract of
@@ -550,6 +560,7 @@ def lww_append(st: LwwShardState, key_idx, lane_off, ts, tie, val, op_dc,
     return _scatter_rows(st, key_idx, lane_off, rows, active)
 
 
+@kernel_span("mat.store")
 def lww_gc(st: LwwShardState, gst: torch.Tensor) -> LwwShardState:
     """Fold stable assigns into the base register (the stability contract
     of :func:`orset_gc`).  Consumes ``st``."""
@@ -561,6 +572,7 @@ def lww_gc(st: LwwShardState, gst: torch.Tensor) -> LwwShardState:
                       base_ts=bts, base_tie=btie, base_val=bval)
 
 
+@kernel_span("mat.store")
 def lww_read(st: LwwShardState, read_vc: torch.Tensor):
     """(ts, tie, val)[K] at ``read_vc``."""
     return kernels.lww_read(
@@ -568,6 +580,7 @@ def lww_read(st: LwwShardState, read_vc: torch.Tensor):
         st.op_ts, st.op_tie, st.op_val, _read_mask(st, read_vc))
 
 
+@kernel_span("mat.store")
 def lww_read_keys(st: LwwShardState, key_idx: torch.Tensor,
                   read_vc: torch.Tensor):
     """(ts, tie, val)[B] for just the requested keys."""
@@ -579,6 +592,7 @@ def lww_read_keys(st: LwwShardState, key_idx: torch.Tensor,
         ops[..., _LTS], ops[..., _LTIE], ops[..., _LVAL], mask)
 
 
+@kernel_span("mat.store")
 def lww_purge_keys(st: LwwShardState, key_idx: torch.Tensor) -> LwwShardState:
     """Free ring lanes and reset the base registers of the given keys to
     unwritten, in place (see :func:`orset_purge_keys`)."""
@@ -734,6 +748,7 @@ def rwset_shard_init(n_keys: int, n_lanes: int, n_slots: int, n_dcs: int,
         n_lanes=L)
 
 
+@kernel_span("mat.store")
 def rwset_append(st: RwsetShardState, key_idx, lane_off, elem_slot, kind,
                  dot_dc, dot_seq, obs_add, obs_rmv, op_dc, op_ct, op_ss,
                  active: torch.Tensor | None = None):
@@ -744,6 +759,7 @@ def rwset_append(st: RwsetShardState, key_idx, lane_off, elem_slot, kind,
     return _scatter_rows(st, key_idx, lane_off, rows, active)
 
 
+@kernel_span("mat.store")
 def rwset_gc(st: RwsetShardState, gst: torch.Tensor) -> RwsetShardState:
     """Fold stable ops into the base planes (the stability contract of
     :func:`orset_gc`; the max-collapse is insensitive to prefix
@@ -756,6 +772,7 @@ def rwset_gc(st: RwsetShardState, gst: torch.Tensor) -> RwsetShardState:
     return _with_base(st, gst, _gc_bitmap(st, stable), adds=adds, rmvs=rmvs)
 
 
+@kernel_span("mat.store")
 def rwset_read(st: RwsetShardState, read_vc: torch.Tensor):
     """(adds, rmvs)[K, E, D]: live dot tables for every key at
     ``read_vc`` (requires read_vc >= base_vc, as :func:`orset_read`)."""
@@ -764,6 +781,7 @@ def rwset_read(st: RwsetShardState, read_vc: torch.Tensor):
         st.obs_add, st.obs_rmv, _read_mask(st, read_vc))
 
 
+@kernel_span("mat.store")
 def rwset_read_keys(st: RwsetShardState, key_idx: torch.Tensor,
                     read_vc: torch.Tensor):
     """(adds, rmvs)[B, E, D] for just the requested keys (transaction
@@ -779,6 +797,7 @@ def rwset_read_keys(st: RwsetShardState, key_idx: torch.Tensor,
         ops[..., _RNSCAL + d:_RNSCAL + 2 * d], mask)
 
 
+@kernel_span("mat.store")
 def rwset_purge_keys(st: RwsetShardState,
                      key_idx: torch.Tensor) -> RwsetShardState:
     """Free ring lanes and zero both base planes of the given keys, in
@@ -861,6 +880,7 @@ def setgo_shard_init(n_keys: int, n_lanes: int, n_slots: int, n_dcs: int,
         n_lanes=L)
 
 
+@kernel_span("mat.store")
 def setgo_append(st: SetGoShardState, key_idx, lane_off, elem_slot, op_dc,
                  op_ct, op_ss, active: torch.Tensor | None = None):
     """Scatter B adds into free ring lanes, in place (the contract of
@@ -869,6 +889,7 @@ def setgo_append(st: SetGoShardState, key_idx, lane_off, elem_slot, op_dc,
     return _scatter_rows(st, key_idx, lane_off, rows, active)
 
 
+@kernel_span("mat.store")
 def setgo_gc(st: SetGoShardState, gst: torch.Tensor) -> SetGoShardState:
     """Fold stable adds into the base bitmap (the stability contract of
     :func:`orset_gc`).  Consumes ``st``."""
@@ -877,6 +898,7 @@ def setgo_gc(st: SetGoShardState, gst: torch.Tensor) -> SetGoShardState:
     return _with_base(st, gst, _gc_bitmap(st, stable), present=present)
 
 
+@kernel_span("mat.store")
 def setgo_read(st: SetGoShardState, read_vc: torch.Tensor) -> torch.Tensor:
     """bool[K, E]: grow-only element presence for every key at
     ``read_vc`` (base bitmap + included ring ops)."""
@@ -884,6 +906,7 @@ def setgo_read(st: SetGoShardState, read_vc: torch.Tensor) -> torch.Tensor:
                                _read_mask(st, read_vc))
 
 
+@kernel_span("mat.store")
 def setgo_read_keys(st: SetGoShardState, key_idx: torch.Tensor,
                     read_vc: torch.Tensor) -> torch.Tensor:
     """bool[B, E]: element presence for the requested keys."""
@@ -893,6 +916,7 @@ def setgo_read_keys(st: SetGoShardState, key_idx: torch.Tensor,
                                mask)
 
 
+@kernel_span("mat.store")
 def setgo_purge_keys(st: SetGoShardState,
                      key_idx: torch.Tensor) -> SetGoShardState:
     """Free ring lanes and clear the base presence of the given keys, in
@@ -972,6 +996,7 @@ def counter_shard_init(n_keys: int, n_lanes: int, n_dcs: int,
         n_lanes=L)
 
 
+@kernel_span("mat.store")
 def counter_append(st: CounterShardState, key_idx, lane_off, delta, op_dc,
                    op_ct, op_ss, active: torch.Tensor | None = None):
     """Scatter B increments into free ring lanes, in place (the contract
@@ -980,6 +1005,7 @@ def counter_append(st: CounterShardState, key_idx, lane_off, delta, op_dc,
     return _scatter_rows(st, key_idx, lane_off, rows, active)
 
 
+@kernel_span("mat.store")
 def counter_gc(st: CounterShardState,
                gst: torch.Tensor) -> CounterShardState:
     """Fold stable increments into the base values (the stability
@@ -991,12 +1017,14 @@ def counter_gc(st: CounterShardState,
     return _with_base(st, gst, _gc_bitmap(st, stable), value=value)
 
 
+@kernel_span("mat.store")
 def counter_read(st: CounterShardState,
                  read_vc: torch.Tensor) -> torch.Tensor:
     """int[K]: counter values at ``read_vc``."""
     return kernels.counter_read(st.value, st.delta, _read_mask(st, read_vc))
 
 
+@kernel_span("mat.store")
 def counter_read_keys(st: CounterShardState, key_idx: torch.Tensor,
                       read_vc: torch.Tensor) -> torch.Tensor:
     """int[B]: counter values for just the requested keys at ``read_vc``
@@ -1007,6 +1035,7 @@ def counter_read_keys(st: CounterShardState, key_idx: torch.Tensor,
                                 mask)
 
 
+@kernel_span("mat.store")
 def counter_purge_keys(st: CounterShardState,
                        key_idx: torch.Tensor) -> CounterShardState:
     """Free ring lanes and zero the base values of the given keys, in

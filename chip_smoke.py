@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (antidote_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--gate-only | --txn-only] [--parent DIR]
+    python3 chip_smoke.py [--gate-only | --txn-only | --multidc-only]
+                          [--parent DIR]
 
 ``--gate-only`` runs phases 1, 2 and 10 alone, ``--txn-only`` phases 1,
-2 and 11; ``--parent DIR`` imports
+2 and 11, ``--multidc-only`` phases 1, 2 and 12; ``--parent DIR`` imports
 the fixpoint wrapper (``ring_fixpoint``) of another checkout at DIR, an
 earlier commit, from its own package and sources, and phase 10 times
 that kernel in turns with this one on the same inputs.  Run from the
@@ -164,10 +165,40 @@ Phases, each of which fails the run on any error or mismatch:
    timed by the smoke), fill rate, peak device memory, and the card's
    busy share over 200 txns under torch.profiler; for leg c dispatches
    a read, waiters a dispatch and the cache-hit %.
+12. multi-DC replication (``MDC``): three ``DataCenter``s on the card on
+   one in-process bus (the reference's 3-DC topology, its 16
+   partitions, config 6's mix and 2,048 keys a type; Config's defaults
+   otherwise, interdc_ship and gate_device_ring on, a 1 s heartbeat:
+   nothing is cut), each leg in fresh temporary data directories.  Leg
+   a: each DC commits 1,000 txns of the mix on 2 client threads, about
+   30 % of dc2's and dc3's first reading the counter another DC's
+   latest update txn incremented, at their own causal snapshot.
+   Printed: txn/s in all and per DC, p50 and p99 ms, aborts;
+   replication lag p50 and p99 (a sampled commit's time from its commit
+   until a read at each other DC at its VC returns) and the deepest
+   inbound frame queue; the GATE_* counters, and per DC the fixpoints,
+   the txns they admitted and every remote txn applied; the card's busy
+   share over 200 of dc2's txns; peak device memory.  Leg b: dc3 cut
+   from dc1 and dc2 (bus.set_link), which commit 3,000 txns each (dc2's
+   reading dc1's writes as in leg a); the links heal and dc3 catches up
+   through gap repair into its gates.  Printed: catch-up seconds (until
+   dc3's stable snapshot covers the last commit of both origins),
+   remote txns admitted a second during it, the ring fixpoint's calls
+   and span ms from its kernel spans (the profiler in detail mode for
+   the catch-up) and the kernel's device ms (torch.profiler), the
+   card's busy share in the catch-up, the largest queue a gate held at
+   a fixpoint.  Checks: the planes and gates on the card; no ERROR record from the port; after
+   each leg every key the tape touched, read at every DC at the tape's
+   VC with the value caches emptied (read dispatches must move), equals
+   the other DCs' and the tape's oracle (counter increments summed, set
+   adds united); dc3 ran the ring fixpoint at least once in leg b;
+   ``profiler.snapshot()`` names ``ring_fixpoint`` and ``ring_append``;
+   leg b's committed updates replayed on three ``DataCenter(device=
+   "cpu")`` through the same cut and heal read the same values.
 
 The line before the last carries the nvidia-smi reading, the ones before
-it the ``kernels``, ``txn``, ``gate``, ``plane`` and ``types`` JSON
-objects; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
+it the ``kernels``, ``multidc``, ``txn``, ``gate``, ``plane`` and
+``types`` JSON objects; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside it, the script exits non-zero and prints
 no result.
 """
@@ -209,6 +240,7 @@ from antidote_tpu_torch.mat import gpu_kernels as gk
 from antidote_tpu_torch.mat import (ingest, rga_kernel, rga_store, store,
                                     synth)
 from antidote_tpu_torch.meta.gossip import StableTimeTracker
+from antidote_tpu_torch.obs.prof import profiler
 
 # H100 SXM (NVIDIA's data sheet): HBM3 rate
 HBM_BYTES_PER_S = 3.35e12
@@ -2015,6 +2047,14 @@ def phase_gate(device, parent=None):
     cascade_t = turns(args_c, 50)
     ms, wall_ms = mean(cascade_t), mean(cascade_t, "wall_ms")
     issue_us = mean(cascade_t, "issue_us")
+    # the kernel-span layer's host cost (obs/prof.py, enabled, nothing
+    # sampled): µs to issue a call through the wrapper and past it
+    # (``__wrapped__``), in turns
+    span_us = {"wrapped": [], "bare": []}
+    for k in ("wrapped", "bare", "bare", "wrapped"):
+        fn = ggk.ring_fixpoint if k == "wrapped" \
+            else ggk.ring_fixpoint.__wrapped__
+        span_us[k].append(device_ms(lambda: fn(*args_c), 50)[1])
     plain_ms = cuda_ms(lambda: ggk.ring_fixpoint_plain(*args_c), 3)
     box = [0]
     with count_waits(box):
@@ -2080,6 +2120,7 @@ def phase_gate(device, parent=None):
         "fixpoint_tables": geo.tables, "evaluations": evaluations,
         "probe_launch_ms": launch_ms, "probe_round_ms": round_ms,
         "fixpoint_by_turn": cascade_t,
+        "fixpoint_issue_us_span_layer": span_us,
         "applying_rounds": rounds,
         "kernel_only_ms": kernel_ms,
         "kernel_only_txns_per_s": n / (kernel_ms / 1e3),
@@ -2105,6 +2146,7 @@ def phase_gate(device, parent=None):
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
         "floor_ms": floor_ms, "wall_ms": wall_ms, "issue_us": issue_us,
+        "issue_us_without_span": float(np.mean(span_us["bare"])),
         "ms_by_shape": shape_ms["device_ms"],
         "wall_ms_by_shape": shape_ms["wall_ms"],
     }
@@ -2738,6 +2780,513 @@ def phase_txn(device):
     return row
 
 
+#: the multi-DC phase: the reference's 3-DC topology
+#: (test/utils/test_utils.erl:428-450) on one InProcBus, each DC a
+#: DataCenter on the card with the reference's 16 partitions
+#: (config/vars.config:5) and config 6's mix and keyspace
+#: (benches/config6_txn.py:393-413: 2,048 keys of each of counter_pn and
+#: set_aw); Config's defaults otherwise (interdc_ship and
+#: gate_device_ring on, a 1 s heartbeat): nothing is cut.  Leg a: each DC
+#: commits ``txns_a`` txns on ``threads`` client threads, about
+#: ``remote_frac`` of dc2's and dc3's first reading a key another DC
+#: wrote.  Leg b: dc3 cut from dc1 and dc2 (test_utils.erl:239-256's
+#: partition_cluster / heal_cluster), dc1 and dc2 commit ``txns_b`` txns
+#: each, then the links heal.
+MDC = dict(n_dcs=3, n_partitions=16, keys=2_048, threads=2, txns_a=1_000,
+           txns_b=3_000, remote_frac=0.3, lag_every=10, profile_txns=200,
+           source="3 DCs (test/utils/test_utils.erl:428-450), 16 "
+                  "partitions (config/vars.config:5), config 6's mix and "
+                  "keyspace (benches/config6_txn.py:393-413)")
+
+
+class MdcTape:
+    """The smoke's oracle of a multi-DC run: every committed update
+    (counter increments of 1, set adds) in commit order per DC, the join
+    of every commit VC, and the expected value of each key (a PN-counter
+    the sum of its increments, an add-only OR-Set the union of its adds:
+    both commute, so applying the tape in causal order gives these)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.updates = {}
+        self.vc = VC()
+        self.last = {}
+
+    def commit(self, dc_id, vc, c_key=None, s_key=None, elem=None):
+        with self.lock:
+            self.vc = self.vc.join(vc)
+            self.last[dc_id] = vc if dc_id not in self.last \
+                else self.last[dc_id].join(vc)
+            if c_key is not None:
+                self.updates.setdefault(dc_id, []).append(
+                    (c_key, s_key, elem))
+
+    def expected(self):
+        want = {}
+        for ups in self.updates.values():
+            for c_key, s_key, elem in ups:
+                want[c_key] = want.get(c_key, 0) + 1
+                want.setdefault(s_key, set()).add(elem)
+        return {k: v if isinstance(v, int) else sorted_values(v)
+                for k, v in want.items()}
+
+
+@contextmanager
+def mdc_cluster(device):
+    """Three DataCenters on ``device`` on one InProcBus, each in a fresh
+    temporary data_dir, connected (connect_dcs) with their background
+    processes running; closed and removed afterwards."""
+    from antidote_tpu_torch.interdc import InProcBus
+    from antidote_tpu_torch.interdc.dc import DataCenter, connect_dcs
+
+    bus = InProcBus()
+    root = tempfile.mkdtemp(prefix="chip_smoke_mdc_")
+    dcs = []
+    try:
+        for i in range(MDC["n_dcs"]):
+            dcs.append(DataCenter(f"dc{i + 1}", bus, config=Config(
+                n_partitions=MDC["n_partitions"]),
+                                  data_dir=f"{root}/dc{i + 1}",
+                                  device=device))
+        connect_dcs(dcs)
+        for dc in dcs:
+            dc.start_bg_processes()
+        yield bus, dcs
+    finally:
+        for dc in dcs:
+            dc.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+class GateTaps:
+    """Per-DC counts on the gates (the GATE_* counters are process-
+    global): each fixpoint a gate runs (through ``_DeviceRing.
+    run_fixpoint``), the txns it admitted, the largest queue a gate held
+    when it ran one, and every remote txn applied (``apply_remote``)."""
+
+    def __init__(self, dcs):
+        self.of_pm = {}
+        self.fix, self.admitted, self.queue, self.applied = (
+            Counter(), Counter(), Counter(), Counter())
+        self.lock = threading.Lock()
+        for dc in dcs:
+            for pm in dc.node.partitions:
+                self.of_pm[id(pm)] = dc.node.dc_id
+                pm.apply_remote = self._tap_apply(dc.node.dc_id,
+                                                  pm.apply_remote)
+        self._orig = dep._DeviceRing.run_fixpoint
+        taps = self
+
+        def run_fixpoint(ring):
+            out = taps._orig(ring)
+            dc_id = taps.of_pm.get(id(ring.gate.pm))
+            with taps.lock:
+                taps.fix[dc_id] += 1
+                taps.admitted[dc_id] += out[0]
+                taps.queue[dc_id] = max(taps.queue[dc_id],
+                                        ring.gate.pending())
+            return out
+
+        dep._DeviceRing.run_fixpoint = run_fixpoint
+
+    def _tap_apply(self, dc_id, apply):
+        def tapped(*a, **k):
+            with self.lock:
+                self.applied[dc_id] += 1
+            return apply(*a, **k)
+        return tapped
+
+    def close(self):
+        dep._DeviceRing.run_fixpoint = self._orig
+
+    def snapshot(self):
+        with self.lock:
+            return {k: dict(v) for k, v in (
+                ("fixpoints", self.fix), ("admitted_by_fixpoint",
+                                          self.admitted),
+                ("largest_queue", self.queue),
+                ("remote_applied", self.applied))}
+
+
+def mdc_mix(dcs, i, txns, seed, tape, recent, threads=None, lags=None,
+            latencies=None, aborts=None):
+    """``txns`` txns of config 6's mix (txn_mix's draws: 80 % read a
+    counter, increment it and add to a set, 20 % read two counters and a
+    set, keys uniform) at dcs[i], split over ``threads`` client threads
+    (default ``MDC["threads"]``).  At dc2 and dc3, ``remote_frac`` of
+    them first read the counter another DC's latest update txn
+    incremented (``recent``), at the DC's own causal snapshot (Cure's:
+    the client carries no clock), so their commits depend on the remote
+    txns that snapshot holds.  Every ``lag_every``-th update's commit
+    goes to ``lags`` (origin index, VC, key, commit time).  Returns the
+    wall seconds."""
+    dc = dcs[i]
+    me = dc.node.dc_id
+    K = MDC["keys"]
+    lock = threading.Lock()
+    threads = threads or MDC["threads"]
+
+    def worker(tid):
+        rng = np.random.default_rng(seed + 100 * i + tid)
+        for n in range(txns // threads):
+            c_key = (f"c{rng.integers(0, K)}", "counter_pn", "bucket")
+            s_key = (f"s{rng.integers(0, K)}", "set_aw", "bucket")
+            update = rng.random() < 0.8
+            foreign = None
+            if i > 0 and rng.random() < MDC["remote_frac"]:
+                with lock:
+                    other = sorted(j for j in recent if j != i)
+                    if other:
+                        foreign = recent[other[int(rng.integers(
+                            0, len(other)))]]
+            elem = b"%s-e%d" % (me.encode(), int(rng.integers(8)))
+            t0 = time.perf_counter()
+            try:
+                tx = dc.start_transaction()
+                if foreign is not None:
+                    dc.read_objects([foreign], tx)
+                if update:
+                    dc.read_objects([c_key], tx)
+                    dc.update_objects([(c_key, "increment", 1),
+                                       (s_key, "add", elem)], tx)
+                else:
+                    dc.read_objects([c_key, s_key, (
+                        f"c{rng.integers(0, K)}", "counter_pn",
+                        "bucket")], tx)
+                vc = dc.commit_transaction(tx)
+            except TransactionAborted:
+                if aborts is not None:
+                    with lock:
+                        aborts[me] = aborts.get(me, 0) + 1
+                continue
+            t1 = time.perf_counter()
+            if latencies is not None:
+                with lock:
+                    latencies.setdefault(me, []).append(t1 - t0)
+            if not update:
+                tape.commit(me, vc)
+                continue
+            tape.commit(me, vc, c_key[:2], s_key[:2], elem)
+            with lock:
+                recent[i] = c_key
+            if lags is not None and n % MDC["lag_every"] == 0:
+                lags(i, vc, c_key, t1)
+
+    return run_threads(worker, threads)
+
+
+def covers(dc, vc, st=None):
+    """``dc``'s stable snapshot (``st``, or read now) covers ``vc`` (its
+    own entry aside): a read at ``vc`` there returns without waiting."""
+    st = dc.stable.get_stable_snapshot() if st is None else st
+    return all(st.get_dc(k) >= v for k, v in vc.items()
+               if k != dc.node.dc_id)
+
+
+class LagProbes:
+    """Replication lag: for a sampled commit, the time from its commit
+    at the origin until a read at each other DC, at that commit's VC,
+    returns.  One thread reads each DC's stable snapshot every 10 ms and
+    reads there once it covers a pending commit's VC (a blocked read
+    would spin the DC's inbound pump meanwhile); it also keeps the
+    deepest inbound frame queue (``InboxWorker``'s inbox) it saw."""
+
+    def __init__(self, dcs):
+        self.dcs = dcs
+        self.pending, self.lags = [], []
+        self.inbox_max = 0
+        self.lock = threading.Lock()
+        self.done = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def __call__(self, i, vc, key, t_commit):
+        with self.lock:
+            self.pending += [(j, vc, key, t_commit)
+                             for j in range(len(self.dcs)) if j != i]
+
+    def _run(self):
+        while True:
+            with self.lock:
+                todo = list(self.pending)
+            if not todo and self.done.is_set():
+                return
+            snaps = [dc.stable.get_stable_snapshot() for dc in self.dcs]
+            self.inbox_max = max([self.inbox_max] + [
+                dc._inbox.qsize() for dc in self.dcs])
+            covered = {j: [p for p in todo if p[0] == j
+                           and covers(self.dcs[j], p[1], snaps[j])]
+                       for j in range(len(self.dcs))}
+            for j, ps in covered.items():
+                for p in ps:
+                    self.dcs[j].read_objects_static(p[1], [p[2]])
+                    self.lags.append(time.perf_counter() - p[3])
+            gone = {id(p) for ps in covered.values() for p in ps}
+            with self.lock:
+                self.pending = [p for p in self.pending
+                                if id(p) not in gone]
+            time.sleep(0.01)
+
+    def result(self, timeout=60.0):
+        self.done.set()
+        self.thread.join(timeout)
+        if self.thread.is_alive() or self.pending:
+            fail(f"[multidc] {len(self.pending)} sampled commits never "
+                 f"became readable at another DC in {timeout} s")
+        ms = np.asarray(self.lags) * 1e3
+        return dict(samples=len(ms), p50_ms=float(np.percentile(ms, 50)),
+                    p99_ms=float(np.percentile(ms, 99)),
+                    max_ms=float(ms.max()), inbox_max=self.inbox_max)
+
+
+def mdc_wait_covered(dc, vc, timeout):
+    """Seconds until ``dc``'s stable snapshot covers ``vc``; fails past
+    ``timeout``."""
+    t0 = time.perf_counter()
+    while not covers(dc, vc):
+        if time.perf_counter() - t0 > timeout:
+            fail(f"[multidc] {dc.node.dc_id}'s stable snapshot "
+                 f"{dict(dc.stable.get_stable_snapshot())} never covered "
+                 f"{dict(vc)}")
+        time.sleep(0.001)
+    return time.perf_counter() - t0
+
+
+def mdc_read_all(what, dcs, tape, device):
+    """Every key the tape touched, read at every DC at the tape's VC with
+    the partitions' value caches emptied (so from the planes on
+    ``device``); the DCs must agree with each other and with the tape's
+    oracle.  Returns {key: value}."""
+    want = tape.expected()
+    keys = sorted(want)
+    got = []
+    for dc in dcs:
+        mdc_wait_covered(dc, tape.vc, 60.0)
+        for pm in dc.node.partitions:
+            with pm._lock:
+                pm._val_cache.clear()
+        d0 = stats.registry.read_dispatches.value()
+        vals = {}
+        for lo in range(0, len(keys), TXN["chunk"]):
+            part = keys[lo:lo + TXN["chunk"]]
+            out, _ = dc.read_objects_static(
+                tape.vc, [(k, tn, "bucket") for k, tn in part])
+            vals.update(zip(part, out))
+        if device.type == "cuda" and \
+                stats.registry.read_dispatches.value() == d0:
+            fail(f"[multidc] {what}: {dc.node.dc_id}'s check read nothing "
+                 f"from the device")
+        bad = [k for k in keys if vals[k] != want[k]]
+        if bad:
+            k = bad[0]
+            fail(f"[multidc] {what}: {len(bad)} of {len(keys)} keys at "
+                 f"{dc.node.dc_id} differ from the tape, first {k}: "
+                 f"{vals[k]!r} against {want[k]!r}")
+        got.append(vals)
+    return got[0]
+
+
+def mdc_counts():
+    reg = stats.registry
+    return {k: reg.gate_dispatches.value(kind=k)
+            for k in dep.GATE_DISPATCH_KINDS} | dict(
+        h2d=reg.gate_h2d_bytes.value(), d2h=reg.gate_d2h_bytes.value(),
+        admitted_batched=reg.gate_admitted_batched.value(),
+        coalesced=reg.gate_coalesced.value())
+
+
+def mdc_leg_a(device):
+    """Steady replication: each DC's mix on its threads, all at once."""
+    tape, recent, lat, aborts = MdcTape(), {}, {}, {}
+    with mdc_cluster(device) as (_bus, dcs):
+        mdc_planes(dcs, device)
+        taps = GateTaps(dcs)
+        try:
+            probes = LagProbes(dcs)
+            c0 = mdc_counts()
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            walls = {}
+
+            def one_dc(i):
+                walls[dcs[i].node.dc_id] = mdc_mix(
+                    dcs, i, MDC["txns_a"], 1, tape, recent, lags=probes,
+                    latencies=lat, aborts=aborts)
+
+            secs = run_threads(one_dc, len(dcs))
+            lag = probes.result()
+            gate = {k: v - c0[k] for k, v in mdc_counts().items()}
+            per_dc = {k: len(lat.get(k, ())) / w for k, w in walls.items()}
+            row = dict(
+                txns_per_dc=MDC["txns_a"], seconds=secs,
+                txn_per_s=sum(len(v) for v in lat.values()) / secs,
+                txn_per_s_by_dc=per_dc, aborts=aborts,
+                p50_ms={k: float(np.percentile(v, 50) * 1e3)
+                        for k, v in lat.items()},
+                p99_ms={k: float(np.percentile(v, 99) * 1e3)
+                        for k, v in lat.items()},
+                replication_lag=lag, gate=gate, **taps.snapshot())
+            if device.type == "cuda":
+                row["peak_memory"] = torch.cuda.max_memory_allocated()
+                row["busy"] = mdc_busy(dcs, tape, recent)
+            mdc_read_all("leg a", dcs, tape, device)
+        finally:
+            taps.close()
+    return row
+
+
+def mdc_planes(dcs, device):
+    """Fails unless every DC's planes and dependency gates are on
+    ``device``."""
+    for dc in dcs:
+        txn_planes(dc, device.type)
+        for g in dc.dep_gates:
+            if g.device.type != device.type:
+                fail(f"[multidc] {dc.node.dc_id}'s gate on {g.device}")
+
+
+def mdc_busy(dcs, tape, recent):
+    """The card's busy share over ``profile_txns`` txns of dc2's mix
+    (its remote reads included) while the other DCs replicate, under
+    torch.profiler."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mdc_mix(dcs, 1, MDC["profile_txns"], 7, tape, recent, threads=1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms = sum(e.self_device_time_total
+                    for e in prof.key_averages()) / 1e3
+    return dict(busy_share=device_ms / wall_ms, wall_ms=wall_ms,
+                device_ms=device_ms, txns=MDC["profile_txns"])
+
+
+def mdc_partitioned(dcs, bus, tape, replay=None):
+    """dc3 cut from dc1 and dc2; dc1 and dc2 commit their mix, dc2's
+    reading dc1's writes (or ``replay``'s committed updates, each DC's
+    in its order, the two DCs at once).  The caller heals the links
+    (``mdc_heal``)."""
+    for a in ("dc1", "dc2"):
+        bus.set_link(a, "dc3", False)
+    if replay is None:
+        run_threads(lambda i: mdc_mix(dcs, i, MDC["txns_b"], 2, tape,
+                                      {}), 2)
+        return
+
+    def one_dc(i):
+        for c_key, s_key, elem in replay.get(f"dc{i + 1}", []):
+            vc = dcs[i].update_objects_static(None, [
+                (c_key + ("bucket",), "increment", 1),
+                (s_key + ("bucket",), "add", elem)])
+            tape.commit(f"dc{i + 1}", vc, c_key, s_key, elem)
+
+    run_threads(one_dc, 2)
+
+
+def mdc_heal(bus):
+    for a in ("dc1", "dc2"):
+        bus.set_link(a, "dc3", True)
+
+
+def mdc_leg_b(device):
+    """Partition and heal on the card; then the same tape on the CPU."""
+    tape = MdcTape()
+    with mdc_cluster(device) as (bus, dcs):
+        mdc_planes(dcs, device)
+        t0 = time.perf_counter()
+        mdc_partitioned(dcs, bus, tape)
+        committed = time.perf_counter() - t0
+        taps = GateTaps(dcs)
+        try:
+            c0 = mdc_counts()
+            # the catch-up's kernel spans: each wrapped call's span on the
+            # stream, from its event pair (resolved without waiting); the
+            # kernels' own device time from torch.profiler
+            profiler.reset()
+            profiler.configure(detail=True)
+            target = tape.last["dc1"].join(tape.last["dc2"])
+            with (torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA])
+                  if device.type == "cuda" else nullcontext()) as trace:
+                t_heal = time.perf_counter()
+                mdc_heal(bus)
+                mdc_wait_covered(dcs[2], target, 120.0)
+                catch_up = time.perf_counter() - t_heal
+            profiler.configure(detail=False)
+            snap = profiler.snapshot()
+            gate = {k: v - c0[k] for k, v in mdc_counts().items()}
+            per = taps.snapshot()
+            applied = per["remote_applied"].get("dc3", 0)
+            fix = snap["kernels"].get("ring_fixpoint", {})
+            row = dict(
+                txns_per_dc=MDC["txns_b"], commit_seconds=committed,
+                commits={k: len(v) for k, v in tape.updates.items()},
+                catch_up_s=catch_up,
+                admitted_per_s=applied / catch_up,
+                remote_applied_in_catch_up=applied,
+                fixpoint_calls=fix.get("calls", 0),
+                fixpoint_span_ms=None if not fix.get("completions")
+                else fix["complete_mean_s"] * 1e3,
+                gate=gate, **per)
+            if trace is not None:
+                ops = trace.key_averages()
+                kern = [e for e in ops if "gate_fixpoint_kernel" in e.key]
+                row["fixpoint_kernel"] = dict(
+                    launches=sum(e.count for e in kern),
+                    device_ms=sum(e.self_device_time_total for e in kern)
+                    / 1e3 / max(sum(e.count for e in kern), 1))
+                row["catch_up_busy_share"] = sum(
+                    e.self_device_time_total for e in ops) / 1e3 / (
+                    catch_up * 1e3)
+            if per["fixpoints"].get("dc3", 0) == 0:
+                fail("[multidc] leg b: dc3 made no fixpoint dispatch: the "
+                     "catch-up never reached the gate's kernel")
+            if not {"ring_fixpoint", "ring_append"} <= set(snap["kernels"]):
+                fail(f"[multidc] leg b: profiler.snapshot() names "
+                     f"{sorted(snap['kernels'])}, not the gate's kernels")
+            final = mdc_read_all("leg b", dcs, tape, device)
+        finally:
+            taps.close()
+    t0 = time.perf_counter()
+    cpu_tape = MdcTape()
+    with mdc_cluster(torch.device("cpu")) as (bus, dcs):
+        mdc_partitioned(dcs, bus, cpu_tape, replay=tape.updates)
+        mdc_heal(bus)
+        cpu_final = mdc_read_all("leg b on the CPU", dcs, cpu_tape,
+                                 torch.device("cpu"))
+    if cpu_final != final:
+        bad = [k for k in final if cpu_final.get(k) != final[k]]
+        fail(f"[multidc] leg b: the CPU run differs on {len(bad)} keys, "
+             f"first {bad[0]}: {cpu_final.get(bad[0])!r} against "
+             f"{final[bad[0]]!r}")
+    row["cpu_replay_s"] = time.perf_counter() - t0
+    row["keys_checked"] = len(final)
+    return row
+
+
+def phase_multidc(device):
+    """Phase 12: legs a and b, with every check.  Returns its row."""
+    errors = ErrorRecords()
+    port_log = logging.getLogger("antidote_tpu_torch")
+    port_log.addHandler(errors)
+    try:
+        t0 = time.perf_counter()
+        row = dict(source=MDC["source"], dcs=MDC["n_dcs"],
+                   partitions=MDC["n_partitions"], keys_per_type=MDC["keys"],
+                   threads=MDC["threads"])
+        row["a"] = mdc_leg_a(device)
+        errors.check("multidc leg a")
+        print(f"[multidc] leg a: {json.dumps(row['a'])}", flush=True)
+        row["b"] = mdc_leg_b(device)
+        errors.check("multidc leg b")
+        print(f"[multidc] leg b: {json.dumps(row['b'])}", flush=True)
+        row["seconds"] = time.perf_counter() - t0
+    finally:
+        port_log.removeHandler(errors)
+    return row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
                                  "one GPU (the module's docstring).")
@@ -2745,6 +3294,8 @@ def main(argv=None):
                     help="run phases 1, 2 and 10 (the gate) only")
     ap.add_argument("--txn-only", action="store_true",
                     help="run phases 1, 2 and 11 (the txn path) only")
+    ap.add_argument("--multidc-only", action="store_true",
+                    help="run phases 1, 2 and 12 (multi-DC) only")
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of an earlier commit whose fixpoint "
                     "wrapper phase 10 times in turns with this one")
@@ -2767,7 +3318,11 @@ def main(argv=None):
         print(f"[build] ptxas:\n{report}", flush=True)
 
     rows = []
-    everything = not (args.gate_only or args.txn_only)
+    only = [o for o in ("gate", "txn", "multidc")
+            if getattr(args, f"{o}_only")]
+    if len(only) > 1:
+        ap.error("at most one of --gate-only, --txn-only, --multidc-only")
+    everything = not only
     if everything:
         t0 = time.perf_counter()
         errs = phase_kernels(device)
@@ -2786,18 +3341,22 @@ def main(argv=None):
         types += phase_ingest(device)
         types.append(phase_rga(device))
         plane = phase_plane(device)
-    if not args.txn_only:
+    if everything or args.gate_only:
         gate, gate_kernel = phase_gate(device, parent)
         rows.append(gate_kernel)
-    if not args.gate_only:
+    if everything or args.txn_only:
         txn = phase_txn(device)
+    if everything or args.multidc_only:
+        multidc = phase_multidc(device)
     if everything:
         print(json.dumps({"types": types}))
         print(json.dumps({"plane": plane}))
-    if not args.txn_only:
+    if everything or args.gate_only:
         print(json.dumps({"gate": gate}))
-    if not args.gate_only:
+    if everything or args.txn_only:
         print(json.dumps({"txn": txn}))
+    if everything or args.multidc_only:
+        print(json.dumps({"multidc": multidc}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

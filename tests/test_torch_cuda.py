@@ -6,9 +6,10 @@ purges, RGA reads and folds that must never wait for the card, the
 device plane's waits (one a flush chunk, one a read), the dependency
 gate's fixpoint kernel against its plain version and the gate on the
 card against the gate on the CPU (its ring updates without a wait, its
-waits per fixpoint the same at any number of rounds), and the wrappers'
-refusals.  Every test here
-skips where no CUDA device is present.
+waits per fixpoint the same at any number of rounds), the kernel spans'
+event pairs, three DataCenters cut and healed on the card against the
+CPU, and the wrappers' refusals.  Every test here skips where no CUDA
+device is present.
 
 The file imports nothing of JAX, so it also runs where JAX is not
 installed (``--noconftest`` skips tests/conftest.py, which imports it):
@@ -696,3 +697,97 @@ def test_read_many_fused_one_dispatch_on_card(cuda_device, tmp_path):
                         for _k, tn in objs]
     finally:
         db.close()
+
+
+@contextmanager
+def _sync_check(mode):
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+def test_kernel_spans_time_the_card_from_events(cuda_device):
+    """On the card a wrapped call measures its completion from a pair of
+    CUDA events, only in detail mode (or sampled, or under a capture),
+    without waiting for the card; ``snapshot`` resolves the pairs."""
+    from antidote_tpu_torch.obs.prof import profiler
+
+    saved = (profiler.enabled, profiler.detail)
+    profiler.reset()
+    try:
+        st = store.counter_shard_init(4096, 8, 2, device=cuda_device)
+        vc = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+        with _sync_check("error"):
+            store.counter_read(st, vc)          # unsampled: no events
+        assert not profiler._pending
+        profiler.configure(detail=True)
+        with _sync_check("error"):
+            for _ in range(3):
+                store.counter_read(st, vc)
+        snap = profiler.snapshot()["kernels"]["counter_read"]
+        assert snap["calls"] == 4 and snap["completions"] == 3
+        assert 0 < snap["complete_mean_s"] < 1
+        assert snap["compile_misses"] == 1
+        assert profiler.snapshot()["live_buffers"]["bytes"] > 0
+    finally:
+        profiler.configure(enabled=saved[0], detail=saved[1])
+        profiler.reset()
+
+
+def _heal_values(device, data_dir):
+    """dc3 cut from dc1 and dc2 of a 3-DC x 4-partition cluster on
+    ``device``; dc1 and dc2 commit 40 txns each (dc2's starting at dc1's
+    latest commit); heal; every DC's values at the join of the commits,
+    and dc3's ring fixpoints during the catch-up."""
+    from antidote_tpu_torch.interdc import InProcBus
+    from antidote_tpu_torch.interdc.dc import DataCenter, connect_dcs
+
+    bus = InProcBus()
+    dcs = [DataCenter(f"dc{i + 1}", bus, config=Config(
+        n_partitions=4, heartbeat_s=0.02, gate_batch_threshold=4,
+        gate_coalesce_us=0), data_dir=f"{data_dir}/dc{i + 1}",
+        device=device) for i in range(3)]
+    try:
+        connect_dcs(dcs)
+        for dc in dcs:
+            dc.start_bg_processes()
+        assert {g.device.type for dc in dcs for g in dc.dep_gates} == {
+            torch.device(device or "cuda").type}
+        for a in ("dc1", "dc2"):
+            bus.set_link(a, "dc3", False)
+        keys = [(f"c{k}", "counter_pn") for k in range(6)] + \
+            [(f"s{k}", "set_aw") for k in range(3)]
+        last = {}
+        for i in range(40):
+            for n, dc in enumerate(dcs[:2]):
+                clock = last.get("dc1") if n else None
+                last[n and "dc2" or "dc1"] = dc.update_objects_static(
+                    clock, [(keys[i % 6], "increment", i + 1),
+                            (keys[6 + i % 3], "add", f"dc{n + 1}-{i}")])
+        target = last["dc1"].join(last["dc2"])
+        f0 = stats.registry.gate_dispatches.value(kind="fixpoint")
+        for a in ("dc1", "dc2"):
+            bus.set_link(a, "dc3", True)
+        vals = [dc.read_objects_static(target, keys)[0] for dc in dcs]
+        return vals, stats.registry.gate_dispatches.value(
+            kind="fixpoint") - f0
+    finally:
+        for dc in dcs:
+            dc.close()
+
+
+@pytest.mark.cuda
+def test_multidc_heal_on_card_matches_cpu(cuda_device, tmp_path):
+    """Three DataCenters on the card, dc3 cut and healed: its gates
+    catch up through the ring fixpoint on the card, and every DC reads
+    what the same tape gives three DataCenters on the CPU."""
+    l0 = ggk.ring_fixpoint.launches
+    card, fix = _heal_values(None, str(tmp_path / "card"))
+    assert ggk.ring_fixpoint.launches > l0 and fix > 0
+    cpu, _ = _heal_values("cpu", str(tmp_path / "cpu"))
+    assert card == cpu
+    assert card[0] == card[1] == card[2]

@@ -18,7 +18,7 @@ from antidote_tpu.mat import store as jstore
 from antidote_tpu_torch import entry
 from antidote_tpu_torch.api import AntidoteGPU
 from antidote_tpu_torch.config import Config
-from antidote_tpu_torch.interdc import dep
+from antidote_tpu_torch.interdc import DataCenter, InProcBus, dep
 from antidote_tpu_torch.mat import (convert, device_plane, rga_store,
                                     store)
 from antidote_tpu_torch.txn.node import Node
@@ -100,7 +100,11 @@ def test_import_leaves_jax_out():
             "antidote_tpu_torch.interdc.synth, antidote_tpu_torch.meta, "
             "antidote_tpu_torch.oplog, antidote_tpu_torch.txn, "
             "antidote_tpu_torch.api, antidote_tpu_torch.txn.node, "
-            "antidote_tpu_torch.mat.serve, antidote_tpu_torch.oplog.convert; "
+            "antidote_tpu_torch.mat.serve, antidote_tpu_torch.oplog.convert, "
+            "antidote_tpu_torch.interdc, antidote_tpu_torch.interdc.dc, "
+            "antidote_tpu_torch.bcounter, antidote_tpu_torch.obs.pipeline, "
+            "antidote_tpu_torch.obs.slo, antidote_tpu_torch.obs.fleet, "
+            "antidote_tpu_torch.meta.device_stable; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'antidote_tpu.')) or "
             "m == 'antidote_tpu']; print(bad); sys.exit(1 if bad else 0)")
@@ -129,6 +133,7 @@ def test_import_leaves_jax_out():
     lambda: dep.gate_from_config(None, "dc", lambda: 0, Config()),
     lambda: AntidoteGPU(),
     lambda: Node(),
+    lambda: DataCenter("dc1", InProcBus()),
 ])
 def test_no_device_raises_without_a_card(call, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

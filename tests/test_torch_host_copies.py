@@ -4,8 +4,10 @@ and flight recorder, the stats registry, the log records, the inter-DC
 wire format, the metadata sender, the GST fold, the stable metadata
 store, the hybrid clock, the commit hooks, the online probes, the op log
 with its native core, checkpoints and partition log, the host store,
-the partition manager, the read serve plane, the remote-call errors and
-the coordinator) equal their sources line for line, but for the package
+the partition manager, the read serve plane, the remote-call errors,
+the coordinator, and the inter-DC plane's pub/sub, gap repair, interest
+routing, bounded-counter transfers and the observability it imports)
+equal their sources line for line, but for the package
 name in their import statements, and so do the single classes,
 functions and assignments the port copied out of larger modules: a
 change on either side that is not carried over fails here."""
@@ -28,7 +30,10 @@ COPIES = ["clocks/vc.py", "config.py", "crdt/__init__.py", "crdt/base.py",
           "oplog/log.py", "oplog/checkpoint.py", "oplog/partition.py",
           "oplog/__init__.py", "mat/host_store.py", "txn/manager.py",
           "mat/serve.py", "cluster/remote.py", "txn/coordinator.py",
-          "txn/__init__.py"]
+          "txn/__init__.py", "obs/pipeline.py", "obs/slo.py",
+          "obs/fleet.py", "obs/nativeobs.py", "interdc/interest.py",
+          "interdc/transport.py", "interdc/query.py", "interdc/sub_buf.py",
+          "interdc/sender.py", "bcounter.py", "interdc/__init__.py"]
 #: (module, top-level class, function or assigned name) copied alone
 EXCERPTS = [("txn/manager.py", "PartitionRetired"),
             ("oplog/log.py", "_fsync_dir"),

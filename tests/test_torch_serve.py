@@ -5,24 +5,37 @@ read_many_fused against the JAX package's, on make_pm-style partitions
 plane on the CPU) fed the same seeded committed streams
 (tests/device/test_device_plane.py's StreamGen, synth.StreamGen in the
 port).  The values read must be equal, and so must the read dispatches,
-drain groups, waiters per dispatch and value-cache hits.  Both tracers
-sample nothing (the JAX kernel-span fallback breaks sampled fused reads,
-ROADMAP §3)."""
+drain groups, waiters per dispatch and value-cache hits.  Both planes
+flush on their row thresholds only (``mat_coalesce_us=0``): the default
+2 ms window flushes at points that follow the wall clock, so the two
+packages, run one after the other, would flush at different ops and
+count differently under load.  Those counters
+are process-global, so each side counts only the increments made on the
+test's own thread (both read paths run on the caller's thread): a
+thread another test left running in the same worker cannot move them.
+Both tracers sample nothing, and the JAX profiler measures no
+completion (its kernel-span fallback breaks a fused read's first trace
+when it does, ROADMAP §3)."""
 
+import collections
 import dataclasses
 import random
+import threading
 
 import pytest
 
 import torch_parity as tp
 from antidote_tpu import stats as jstats
+from antidote_tpu.config import Config as JConfig
 from antidote_tpu.mat import device_plane as jdp
 from antidote_tpu.mat import serve as jserve
+from antidote_tpu.obs import prof as jprof
 from antidote_tpu.obs.spans import tracer as jtracer
 from antidote_tpu.oplog.partition import PartitionLog as JPartitionLog
 from antidote_tpu.txn import manager as jmanager
 from antidote_tpu.txn.clock import HybridClock as JHybridClock
 from antidote_tpu_torch import stats as tstats
+from antidote_tpu_torch.config import Config
 from antidote_tpu_torch.mat import device_plane as tdp
 from antidote_tpu_torch.mat import serve as tserve
 from antidote_tpu_torch.mat.synth import StreamGen
@@ -35,19 +48,55 @@ TYPES = ("counter_pn", "set_aw", "register_mv", "set_rw")
 N_PARTS = 3
 
 
+#: the serve counters compared (stats.registry) and the planes' read
+#: dispatch count (device_plane.count_read_dispatch)
+COUNTERS = ("read_dispatches", "read_serve_groups", "read_serve_waiters",
+            "read_cache_hits", "read_cache_misses")
+
+
 @pytest.fixture(autouse=True)
 def _no_sampling(monkeypatch):
     monkeypatch.setattr(jtracer, "sample_rate", 0.0)
     monkeypatch.setattr(ttracer, "sample_rate", 0.0)
+    monkeypatch.setattr(jprof.profiler, "detail", False)
+    assert jprof.active_dir() is None
+    assert jtracer.current() is None and ttracer.current() is None
+
+
+class ThreadCounts:
+    """One package's serve counters, counted on the calling thread only:
+    every counter's ``inc`` (and the planes' ``count_read_dispatch``)
+    still moves the process-global value, and also adds to this tally
+    when the caller is the thread that built it."""
+
+    def __init__(self, monkeypatch, registry, dp):
+        self.thread = threading.get_ident()
+        self.n = collections.Counter()
+        for name in COUNTERS:
+            counter = getattr(registry, name)
+            monkeypatch.setattr(counter, "inc", self._tap(name, counter.inc))
+        monkeypatch.setattr(dp, "count_read_dispatch",
+                            self._tap("plane", dp.count_read_dispatch))
+
+    def _tap(self, name, inc):
+        def tapped(*args, **labels):
+            if threading.get_ident() == self.thread:
+                self.n[name] += args[0] if args else 1
+            return inc(*args, **labels)
+        return tapped
+
+    def counts(self):
+        return tuple(self.n[k] for k in COUNTERS + ("plane",))
 
 
 class Side:
     """One package's partitions, each with its serve window."""
 
-    def __init__(self, tmp_path, port, coalesce_us=0):
+    def __init__(self, tmp_path, port, monkeypatch, coalesce_us=0):
         self.port = port
-        self.stats = (tstats if port else jstats).registry
         self.dp = tdp if port else jdp
+        self.tally = ThreadCounts(
+            monkeypatch, (tstats if port else jstats).registry, self.dp)
         name = "port" if port else "jax"
         self.pms = []
         for p in range(N_PARTS):
@@ -55,14 +104,15 @@ class Side:
             if port:
                 pm = tmanager.PartitionManager(
                     p, "dc1", PartitionLog(path, partition=p),
-                    HybridClock(),
-                    device_plane=tdp.DevicePlane(device="cpu"))
+                    HybridClock(), device_plane=tdp.DevicePlane(
+                        config=Config(mat_coalesce_us=0), device="cpu"))
                 pm.read_server = tserve.ReadServer(
                     pm, tserve.ServeSettings(coalesce_us=coalesce_us))
             else:
                 pm = jmanager.PartitionManager(
                     p, "dc1", JPartitionLog(path, partition=p),
-                    JHybridClock(), device_plane=jdp.DevicePlane())
+                    JHybridClock(), device_plane=jdp.DevicePlane(
+                        config=JConfig(mat_coalesce_us=0)))
                 pm.read_server = jserve.ReadServer(
                     pm, jserve.ServeSettings(coalesce_us=coalesce_us))
             self.pms.append(pm)
@@ -84,10 +134,7 @@ class Side:
         return vc if self.port or vc is None else tp.jax_vc(vc)
 
     def counts(self):
-        r = self.stats
-        return (r.read_dispatches.value(), r.read_serve_groups.value(),
-                r.read_serve_waiters.value(), r.read_cache_hits.value(),
-                r.read_cache_misses.value(), self.dp.read_dispatch_count())
+        return self.tally.counts()
 
     def close(self):
         for pm in self.pms:
@@ -120,8 +167,9 @@ def _delta(a, b):
 
 
 @pytest.fixture
-def sides(tmp_path):
-    out = [Side(tmp_path, port=False), Side(tmp_path, port=True)]
+def sides(tmp_path, monkeypatch):
+    out = [Side(tmp_path, port=False, monkeypatch=monkeypatch),
+           Side(tmp_path, port=True, monkeypatch=monkeypatch)]
     yield out
     for s in out:
         s.close()
@@ -152,9 +200,12 @@ def test_read_server_coalescing_matches_jax(sides, seed):
         assert got[0] == got[1], rnd
         vals, (disp, groups, waiters, *_rest) = got[1]
         assert groups and waiters == len(plan)
-        s = sides[1]
-        for (p, its, vc), v in zip(plan, vals):
-            assert v == s.pms[p].read_many(its, vc)
+        # each waiter's values equal a direct read at its snapshot, on
+        # both sides: a read on one side alone would warm only that
+        # side's value cache and skew the next round's counts
+        for s in sides:
+            for (p, its, vc), v in zip(plan, vals):
+                assert v == s.pms[p].read_many(its, s.vc(vc))
         # a publish between rounds: the next round's latest readers miss
         # the cache on the keys it touched
         p = StreamGen(seed + 50 + rnd).next_op("counter_pn")
@@ -168,6 +219,34 @@ def test_read_many_fused_matches_jax(sides, seed):
     """A read spanning every partition and type: one fused dispatch for
     all the captured folds in both packages, the same values, and the
     same counts through read_groups' idle-window route."""
+    _fused_case(sides, seed)
+
+
+def test_counts_ignore_other_threads(sides):
+    """The fused case with a thread that keeps bumping both packages'
+    global serve counters (what a node another test left running does):
+    the tallies see only the test's own reads."""
+    stop = threading.Event()
+
+    def noise():
+        while not stop.wait(0.001):
+            for reg, dp in ((jstats.registry, jdp), (tstats.registry, tdp)):
+                for name in COUNTERS:
+                    getattr(reg, name).inc()
+                dp.count_read_dispatch()
+
+    t = threading.Thread(target=noise, daemon=True)
+    t.start()
+    try:
+        _fused_case(sides, 3)
+    finally:
+        stop.set()
+        t.join()
+    for s in sides:
+        assert s.tally.counts()[-1] < 20
+
+
+def _fused_case(sides, seed):
     snaps, items = _fill(sides, seed)
     groups_of = [[it for it in items if _part(it[0]) == p]
                  for p in range(N_PARTS)]
