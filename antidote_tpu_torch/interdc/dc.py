@@ -18,7 +18,12 @@ an ``AntidoteGPU`` and takes ``device`` (None: the card, or raise,
 through ``resolve_device``; ``"cpu"`` runs the node's planes and every
 partition's dependency gate on the CPU), which it passes to its
 ``Node`` and to each gate it builds, so a DC's gates run where its
-planes do.  Everything else is the JAX module's code.
+planes do; a partition's own-DC stable entry is ``txn.node.stable_time``
+(exclusive of its pending prepares) where the JAX module uses
+``min_prepared``; the widen backfill of ``set_interest`` enqueues into
+a gate under ``_rx_lock``, as every delivery does (the JAX module
+enqueues without it, racing the inbox worker's pass on the same
+gate).  Everything else is the JAX module's code.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ from antidote_tpu_torch.meta.stable_store import StableMetaData
 from antidote_tpu_torch.obs import pipeline as obs_pipeline
 from antidote_tpu_torch.obs import probe as obs_probe
 from antidote_tpu_torch.obs.spans import tracer
-from antidote_tpu_torch.txn.node import Node
+from antidote_tpu_torch.txn.node import Node, stable_time
 
 
 class DataCenter(AntidoteGPU):
@@ -252,7 +257,7 @@ class DataCenter(AntidoteGPU):
             def pull():
                 gate = self.dep_gates[p]
                 return VC(gate.applied_vc).set_dc(
-                    dc_id, node.partitions[p].min_prepared())
+                    dc_id, stable_time(node.partitions[p]))
             return pull
 
         self.stable.sources = [_source(p) for p in range(n)]
@@ -474,7 +479,10 @@ class DataCenter(AntidoteGPU):
                      and t.last_opid() > floor
                      and t.last_opid() not in applied]
             if fresh:
-                self.dep_gates[p].enqueue_batch(fresh)
+                # the gates assume one writer: the delivery worker
+                # drives them under _rx_lock, and so does this fill
+                with self._rx_lock:
+                    self.dep_gates[p].enqueue_batch(fresh)
 
     def observe_dcs_sync(self, descs: List[DcDescriptor],
                          timeout: float = 30.0) -> None:

@@ -35,10 +35,16 @@ def ensure_built(name: str) -> str | None:
         if os.path.exists(out) and os.path.getmtime(out) >= _src_mtime(src):
             return out
         os.makedirs(_BUILD_DIR, exist_ok=True)
+        # build under a name of this process's own, then rename: the
+        # lock guards one process only, and a node or DC process
+        # loading the library while another builds it must never map
+        # a partial file
+        tmp = f"{out}.{os.getpid()}.tmp"
         cmd = ["g++", "-O2", "-fPIC", "-shared", "-std=c++17",
-               "-pthread", src, "-o", out]
+               "-pthread", src, "-o", tmp]
         try:
             subprocess.run(cmd, check=True, capture_output=True)
         except (FileNotFoundError, subprocess.CalledProcessError):
             return None
+        os.replace(tmp, out)
         return out

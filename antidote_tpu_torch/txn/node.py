@@ -16,8 +16,10 @@ count CUDA devices, not jax devices; the device stable tracker
 (``meta/device_stable.py``) and the pod-sharded plane
 (``mat/sharded.py``'s mesh) are not ported yet (ROADMAP §1 item 5), so
 the configurations that would build them on several cards raise
-``NotImplementedError`` instead.  Everything else is the JAX module's
-code.
+``NotImplementedError`` instead; a partition's own-DC stable
+contribution is :func:`stable_time`, one microsecond below its
+``min_prepared`` (the JAX module's sources use ``min_prepared`` itself).
+Everything else is the JAX module's code.
 """
 
 from __future__ import annotations
@@ -296,6 +298,18 @@ class LiveFold:
                 pass
         self.new_logs.clear()
         self._release()
+
+
+def stable_time(pm) -> int:
+    """A partition's own-DC entry in the stable snapshot: strictly below
+    every commit it can still apply.  A pending transaction commits at
+    the max of its prepare times, so on its max-prepare partition the
+    commit time EQUALS ``min_prepared``; a stable snapshot that
+    included that time would let a device GC raise the plane's base to
+    it before the commit publishes, and reads would then treat the late
+    op as folded and miss it.  Exclusive, like the dependency gate's
+    pings (interdc/dep.py)."""
+    return pm.min_prepared() - 1
 
 
 class Node:
@@ -987,9 +1001,9 @@ class Node:
         return v
 
     def min_prepared_vc(self) -> int:
-        """Node-wide min prepared time (feeds the stable-time gossip);
-        folds this process's own partitions."""
-        return min(pm.min_prepared() for pm in self._local_partitions())
+        """Node-wide stable time (feeds the stable-time gossip): the
+        min of this process's own partitions' :func:`stable_time`."""
+        return min(stable_time(pm) for pm in self._local_partitions())
 
     def mint_dot(self) -> Tuple[Any, int]:
         """Unique dot for CRDT downstream generation: ``(dc_id, µs)``

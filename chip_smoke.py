@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (antidote_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--gate-only | --txn-only | --multidc-only]
-                          [--parent DIR]
+    python3 chip_smoke.py [--gate-only | --txn-only | --multidc-only |
+                           --cluster-only] [--parent DIR]
 
 ``--gate-only`` runs phases 1, 2 and 10 alone, ``--txn-only`` phases 1,
-2 and 11, ``--multidc-only`` phases 1, 2 and 12; ``--parent DIR`` imports
+2 and 11, ``--multidc-only`` phases 1, 2 and 12, ``--cluster-only``
+phases 1, 2 and 13; ``--parent DIR`` imports
 the fixpoint wrapper (``ring_fixpoint``) of another checkout at DIR, an
 earlier commit, from its own package and sources, and phase 10 times
 that kernel in turns with this one on the same inputs.  Run from the
@@ -195,10 +196,42 @@ Phases, each of which fails the run on any error or mismatch:
    ``profiler.snapshot()`` names ``ring_fixpoint`` and ``ring_append``;
    leg b's committed updates replayed on three ``DataCenter(device=
    "cpu")`` through the same cut and heal read the same values.
+13. DCs and nodes in their own processes (``CLUSTER``, ``FED``), every
+   process a fresh interpreter on the card started as ``chip_smoke.py
+   --child ROLE ...`` (a JSON-line protocol on stdout; stderr to a file
+   beside its data directory).  Leg a: BASELINE config 6's cluster mode,
+   4 data nodes (the package's ``python -m antidote_tpu_torch.cluster``
+   with ``--sync-log``) over 8 partitions and the coordinator-only
+   client fleet its bench sizes for the host; warm, a timed run, a
+   ~200-txn run under each data node's torch.profiler, then a ``kill -9``
+   of n2 and its restart from its data directory and planned port, and
+   every touched key read through a client with every data node's value
+   caches emptied against the tape; then the same fleet against one data
+   node, for the scaling ratio.  Leg b: phase 12's three DCs, each its
+   own process over the TCP transport (Config's defaults; dc3, which the
+   leg kills, with sync_log on): leg a's mix and remote reads (each DC
+   reading the counter another DC's latest applied txn incremented),
+   replication lag (a remote txn's time from its commit until the DC's
+   stable snapshot covers it) and inbox depth from a thread in each DC;
+   then dc3 ``kill -9``ed while dc1 and dc2 commit 3,000 txns each, and
+   restarted on its ports and data directory: catch-up seconds,
+   admissions a second and its own ``ring_fixpoint`` launches (at least
+   one); every touched key at the three DCs against the tape.  Leg c:
+   two DCs of two node processes each federated over TCP
+   (``cluster/federation.py``), a short mix at every member, every
+   touched key at every member against the tape.  Every child reports
+   its device, planes, gates, node-fabric and hub kinds, ERROR records
+   under ``antidote_tpu_torch``, peak device memory and any module of
+   jax or the JAX package; the phase fails on any non-native fabric or
+   hub, any plane or gate off the card, any record, foreign module or
+   non-zero exit.  Printed: txn/s, aborts, p50 / p99 ms, the 1 -> 4
+   scaling ratio, RPCs a txn, restart seconds, lag, inbox depth,
+   catch-up, each process's peak memory and their sum, the busy share
+   summed over the card processes.
 
 The line before the last carries the nvidia-smi reading, the ones before
-it the ``kernels``, ``multidc``, ``txn``, ``gate``, ``plane`` and
-``types`` JSON objects; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
+it the ``kernels``, ``cluster``, ``multidc``, ``txn``, ``gate``,
+``plane`` and ``types`` JSON objects; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside it, the script exits non-zero and prints
 no result.
 """
@@ -208,9 +241,11 @@ import cProfile
 import importlib
 import json
 import logging
+import os
 import pstats
 import random
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -3287,6 +3322,1185 @@ def phase_multidc(device):
     return row
 
 
+#: phase 13, leg a: BASELINE config 6's cluster mode (benches/
+#: config6_txn.py:175-260 ``run_cluster``, sized at :415-450): a DC of
+#: ``data_nodes`` node processes over ``partitions`` partitions, driven
+#: by a fleet of coordinator-only client processes sized by its rule
+#: for the host (``fleet``); then the same fleet against one data node
+#: (``txns // 2`` a client) for the scaling ratio.  Every data node runs
+#: the package's own ``python -m antidote_tpu_torch.cluster`` with
+#: ``--sync-log``: a txn a client saw acknowledged must read back after
+#: a ``kill -9`` (config 6's cluster mode runs sync_log off; with it off
+#: the log's group-commit queue could lose acknowledged txns to the
+#: kill).  Gossip and heartbeats every 0.2 s, as config 6's node.
+CLUSTER = dict(data_nodes=4, partitions=8, keys=2_048, txns=1_500,
+               warm_txns=100, profile_txns=50, heartbeat_s=0.2,
+               source="BASELINE config 6's cluster mode, benches/"
+                      "config6_txn.py:175-260 (run_cluster: 8 partitions, "
+                      "coordinator-only clients, the update-heavy mix over "
+                      "the whole keyspace) sized at :415-450 (4 data nodes, "
+                      "clients max(4, min(8, cores - 4)) x 4 threads, 1,500 "
+                      "txns a client; 1 data node at 750 for the ratio); "
+                      "2,048 keys a type; sync_log on")
+#: phase 13, leg c: two DCs of two node processes each, federated over
+#: TCP (cluster/federation.py), a short mix at every member
+FED = dict(dcs=("dcA", "dcB"), members=2, partitions=8, keys=2_048,
+           txns=250, threads=2, txns_down=400,
+           source="cluster/federation.py's multi-node federation "
+                  "(tests/cluster/test_federation.py's two DCs of two "
+                  "nodes), config 6's mix at 2,048 keys a type, about "
+                  "500 txns a DC")
+
+
+def cluster_fleet():
+    """Config 6's client fleet for this host (config6_txn.py:426-430):
+    (clients, threads a client, cores)."""
+    cores = os.cpu_count() or 1
+    n = max(4, min(8, cores - CLUSTER["data_nodes"]))
+    return n, 2 if cores < 4 else 4, cores
+
+
+def foreign_modules():
+    """Modules of jax or of the JAX package this process loaded."""
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "antidote_tpu"))
+
+
+# ------------------------------------------------- phase 13: the children
+
+class ChildState:
+    """What every child process reports: its device, its ERROR records
+    under ``antidote_tpu_torch``, peak device memory, device time from
+    torch.profiler between ``prof_start`` and ``prof_stop``, and that it
+    loaded neither jax nor the JAX package."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.errors = ErrorRecords()
+        logging.getLogger("antidote_tpu_torch").addHandler(self.errors)
+        self.prof = None
+
+    def report(self, **extra):
+        cuda = self.device.type == "cuda" and torch.cuda.is_initialized()
+        errs = self.errors.records
+        return dict(
+            pid=os.getpid(), device=str(self.device),
+            peak_memory=torch.cuda.max_memory_allocated() if cuda else 0,
+            errors=len(errs),
+            first_error=None if not errs else
+            f"{errs[0].name}: {errs[0].getMessage()} {errs[0].exc_text or ''}",
+            foreign=foreign_modules(), **extra)
+
+    def prof_start(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+            self.prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            self.prof.start()
+        return {"ok": True}
+
+    def prof_stop(self):
+        if self.prof is None:
+            return {"device_ms": 0.0}
+        torch.cuda.synchronize()
+        self.prof.stop()
+        ms = sum(e.self_device_time_total
+                 for e in self.prof.key_averages()) / 1e3
+        self.prof = None
+        return {"device_ms": ms}
+
+
+def child_out(obj):
+    sys.stdout.write(json.dumps(obj) + "\n")
+    sys.stdout.flush()
+
+
+def child_serve(handlers):
+    """Answers JSON-line commands on stdin (one reply line each) until
+    ``exit``; a handler's exception is the reply's ``error``."""
+    for line in sys.stdin:
+        req = json.loads(line)
+        cmd = req.pop("cmd")
+        try:
+            reply = handlers[cmd](**req)
+        except Exception as e:  # noqa: BLE001 — reported to the parent
+            import traceback
+
+            reply = {"error": f"{type(e).__name__}: {e}",
+                     "trace": traceback.format_exc()[-3000:]}
+        child_out(reply)
+        if cmd == "exit":
+            return
+
+
+def child_mix(api, txns, threads, keys, seed, tag, remote=None,
+              remote_frac=0.0):
+    """Config 6's mix (txn_mix's draws) on ``threads`` client threads of
+    ``txns // threads`` transactions over ``api``; with ``remote``
+    (a callable giving the counter key another DC wrote last, or
+    None), ``remote_frac`` of them first read it at the DC's own
+    snapshot.  Returns the committed txns' latencies (ms), the aborts,
+    the wall seconds, every committed update and the join of the
+    commit VCs."""
+    lock = threading.Lock()
+    lat, tape, aborts, vcs = [], [], [0], [VC()]
+
+    def worker(tid):
+        rng = np.random.default_rng(seed * 1000 + tid)
+        for _ in range(txns // threads):
+            c_key = f"c{rng.integers(0, keys)}"
+            s_key = f"s{rng.integers(0, keys)}"
+            update = rng.random() < 0.8
+            foreign = remote() if remote is not None \
+                and rng.random() < remote_frac else None
+            elem = f"{tag}-e{int(rng.integers(8))}"
+            t0 = time.perf_counter()
+            try:
+                tx = api.start_transaction()
+                if foreign is not None:
+                    api.read_objects([(foreign, "counter_pn", "bucket")],
+                                     tx)
+                if update:
+                    api.read_objects([(c_key, "counter_pn", "bucket")], tx)
+                    api.update_objects([
+                        ((c_key, "counter_pn", "bucket"), "increment", 1),
+                        ((s_key, "set_aw", "bucket"), "add", elem)], tx)
+                else:
+                    api.read_objects([
+                        (c_key, "counter_pn", "bucket"),
+                        (s_key, "set_aw", "bucket"),
+                        (f"c{rng.integers(0, keys)}", "counter_pn",
+                         "bucket")], tx)
+                vc = api.commit_transaction(tx)
+            except TransactionAborted:
+                with lock:
+                    aborts[0] += 1
+                continue
+            dt = (time.perf_counter() - t0) * 1e3
+            with lock:
+                lat.append(dt)
+                vcs[0] = vcs[0].join(vc)
+                if update:
+                    tape.append((c_key, s_key, elem))
+
+    secs = run_threads(worker, threads)
+    return dict(lat_ms=lat, aborts=aborts[0], secs=secs, tape=tape,
+                vc=dict(vcs[0]))
+
+
+def child_read(api, keys, clock, chunk=256):
+    """Every (key, type) of ``keys`` read at ``clock`` through ``api``,
+    in static reads of ``chunk`` keys."""
+    vals = []
+    for lo in range(0, len(keys), chunk):
+        part = keys[lo:lo + chunk]
+        out, _ = api.read_objects_static(
+            VC(clock), [(k, tn, "bucket") for k, tn in part])
+        vals += out
+    return {"values": vals}
+
+
+def clear_caches(pms):
+    n = 0
+    for pm in pms:
+        with pm._lock:
+            n += len(pm._val_cache)
+            pm._val_cache.clear()
+    return n
+
+
+def planes_on(pms):
+    """The device types every state tensor of these partitions' planes
+    sits on."""
+    kinds = set()
+    for pm in pms:
+        for p in pm.device.planes.values():
+            subs = p._all_planes() if isinstance(
+                p, device_plane.MapPlane) else [p]
+            for sub in subs:
+                sts = sub.st.values() if isinstance(sub.st, dict) \
+                    else [sub.st]
+                for st in sts:
+                    kinds |= {getattr(st, f.name).device.type
+                              for f in fields(st) if isinstance(
+                                  getattr(st, f.name), torch.Tensor)}
+    return sorted(kinds)
+
+
+def wait_covered(stable, own, vc, timeout):
+    """Seconds until ``stable()`` covers ``vc`` (``own``'s entry
+    aside); raises past ``timeout``."""
+    t0 = time.perf_counter()
+    while not all(stable().get_dc(k) >= v for k, v in vc.items()
+                  if k != own):
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"stable snapshot {dict(stable())} never "
+                               f"covered {dict(vc)}")
+        time.sleep(0.001)
+    return time.perf_counter() - t0
+
+
+def child_node(argv):
+    """A data node: the package's ``python -m antidote_tpu_torch.cluster``
+    (its own argument parser, NodeServer and SIGTERM handling) run
+    unchanged in this process's main thread.  A thread answers the
+    parent's commands on stdin meanwhile (report, clear_caches,
+    prof_start, prof_stop), finding the CLI's NodeServer in the main
+    thread's frames (the CLI's ``srv``); the report carries its
+    fabric's kind, which the parent requires to be native.  The exit
+    report is the last line on stdout."""
+    import runpy
+
+    from antidote_tpu_torch.cluster import node as cluster_node
+
+    dev = argv[argv.index("--device") + 1] if "--device" in argv \
+        else "cuda"
+    state = ChildState(dev)
+    box = {}
+
+    def server():
+        frame = sys._current_frames().get(threading.main_thread().ident)
+        while "srv" not in box and frame is not None:
+            srv = frame.f_locals.get("srv")
+            if isinstance(srv, cluster_node.NodeServer):
+                box["srv"] = srv
+            frame = frame.f_back
+        return box.get("srv")
+
+    def local():
+        srv = server()
+        if srv is None or srv.node is None:
+            return []
+        return srv.node._local_partitions()
+
+    def report():
+        srv = server()
+        return state.report(
+            node=None if srv is None else srv.node_id,
+            fabric=None if srv is None else srv.fabric_kind(),
+            planes=planes_on(local()),
+            read_dispatches=stats.registry.read_dispatches.value())
+
+    threading.Thread(target=child_serve, daemon=True, args=(dict(
+        report=report,
+        clear_caches=lambda: {"cleared": clear_caches(local())},
+        prof_start=state.prof_start, prof_stop=state.prof_stop),)).start()
+    sys.argv = ["antidote_tpu_torch.cluster"] + argv
+    try:
+        runpy.run_module("antidote_tpu_torch.cluster", run_name="__main__",
+                         alter_sys=True)
+    except SystemExit as e:
+        if e.code not in (None, 0):
+            raise
+    child_out({"exit_report": report()})
+
+
+def child_client(node_id, data_dir, device):
+    """A coordinator-only member of the DC (config 6's client role): a
+    NodeServer holding no ring slot.  Commands: ``join`` (pushes the
+    plan to the data nodes named in ``push`` over the node fabric's
+    join RPC, then installs it here), ``run`` (the mix), ``read``,
+    ``report``, ``exit``.  Counts the partition RPCs it starts."""
+    from antidote_tpu_torch.cluster import NodeServer
+
+    state = ChildState(device)
+    srv = NodeServer(node_id, data_dir=data_dir, device=device,
+                     config=Config(n_partitions=CLUSTER["partitions"],
+                                   fabric_native=True, sync_log=True,
+                                   heartbeat_s=CLUSTER["heartbeat_s"],
+                                   cluster_gossip_s=CLUSTER["heartbeat_s"]))
+    rpcs = Counter()
+    start = srv.link.start_request
+
+    def counted(peer_id, kind, payload):
+        rpcs[kind] += 1
+        return start(peer_id, kind, payload)
+
+    srv.link.start_request = counted
+
+    def join(dc, ring, members, clients, push=()):
+        ring = {int(p): n for p, n in ring.items()}
+        members = {n: tuple(a) for n, a in members.items()}
+        payload = (dc, sorted(ring.items()), sorted(members.items()),
+                   srv.fabric_kind(), list(clients))
+        for nid in push:
+            srv.link.connect(nid, members[nid])
+            srv.link.request(nid, "join", payload)
+        srv.install_cluster(dc, ring, members, fabric=srv.fabric_kind(),
+                            clients=list(clients))
+        return {"ok": True}
+
+    def run(txns, threads, keys, seed):
+        r0 = sum(rpcs.values())
+        out = child_mix(srv.api, txns, threads, keys, seed, node_id)
+        out["rpcs"] = sum(rpcs.values()) - r0
+        return out
+
+    def exit_():
+        srv.close()
+        return {"exit_report": state.report(node=node_id,
+                                            fabric=srv.fabric_kind())}
+
+    child_out({"ready": True, "addr": list(srv.addr),
+               "fabric": srv.fabric_kind()})
+    child_serve(dict(
+        join=join, run=run,
+        read=lambda keys, clock: child_read(
+            srv.api, [tuple(k) for k in keys], clock),
+        report=lambda: state.report(node=node_id, fabric=srv.fabric_kind()),
+        exit=exit_))
+
+
+class RemoteTaps:
+    """Counts every remote txn a DC applies (``apply_remote``), keeps
+    the counter key each origin's latest applied txn incremented, and
+    samples replication lag: for every ``every``-th applied txn, the
+    time from its commit (the origin's clock, this host's) until the
+    DC's stable snapshot covers its commit VC, read by a thread every
+    10 ms; the thread also keeps the deepest inbound frame queue."""
+
+    def __init__(self, pms, stable, own, inbox, every):
+        self.lock = threading.Lock()
+        self.applied = 0
+        self.latest = {}
+        self.pending, self.lags = [], []
+        self.inbox_max = 0
+        self.stable, self.own, self.inbox = stable, own, inbox
+        self.every = every
+        self.sampling = False
+        for pm in pms:
+            pm.apply_remote = self._tap(pm.apply_remote)
+        self.done = threading.Event()
+        threading.Thread(target=self._run, daemon=True).start()
+
+    def _tap(self, apply):
+        def tapped(recs, dc, ts, ss, *a, **k):
+            out = apply(recs, dc, ts, ss, *a, **k)
+            key = next((r.payload[1] for r in recs
+                        if r.payload[0] == "update"
+                        and r.payload[2] == "counter_pn"), None)
+            if isinstance(key, tuple):
+                key = key[0]
+            with self.lock:
+                self.applied += 1
+                if key is not None:
+                    self.latest[dc] = key
+                if self.sampling and self.applied % self.every == 0:
+                    self.pending.append(
+                        (VC(dict(ss)).set_dc(dc, ts), ts / 1e6))
+            return out
+        return tapped
+
+    def remote_key(self):
+        with self.lock:
+            keys = sorted(self.latest.values())
+        return None if not keys else keys[len(keys) // 2]
+
+    def _run(self):
+        while not self.done.wait(0.01):
+            st = self.stable()
+            q = self.inbox.qsize() if self.inbox is not None else 0
+            now = time.time()
+            with self.lock:
+                self.inbox_max = max(self.inbox_max, q)
+                keep = []
+                for vc, t in self.pending:
+                    if all(st.get_dc(k) >= v for k, v in vc.items()
+                           if k != self.own):
+                        self.lags.append(now - t)
+                    else:
+                        keep.append((vc, t))
+                self.pending = keep
+
+    def take(self, timeout=60.0):
+        """The lag samples since the last call, once every pending
+        sample is covered (or ``timeout`` passed: ``pending`` counts
+        the rest), and the deepest inbox since then."""
+        t0 = time.perf_counter()
+        while self.pending and time.perf_counter() - t0 < timeout:
+            time.sleep(0.01)
+        with self.lock:
+            lags, self.lags = self.lags, []
+            out = dict(applied=self.applied, lag_samples=len(lags),
+                       lag_s=lags, pending=len(self.pending),
+                       inbox_max=self.inbox_max)
+            self.inbox_max = 0
+        return out
+
+
+def child_dc(dc_id, data_dir, pub_port, query_port, device, sync_log):
+    """One DataCenter of leg b in its own process over the TCP
+    transport (``fabric_native=True``: the native publish hub, or
+    raise), 16 partitions, Config's defaults otherwise (phase 12's) but
+    ``sync_log`` ("1" for the DC the leg kills: a txn it acknowledged
+    must read back after its restart), on ``device``.
+    Commands: descriptor, connect, run (the mix, ``remote_frac`` of its
+    txns first reading another DC's latest applied counter), lag (the
+    samples since the last call), read, clear_caches, covered (seconds
+    until the stable snapshot covers a VC), report, prof_start,
+    prof_stop, exit."""
+    from antidote_tpu_torch.interdc.dc import DataCenter
+    from antidote_tpu_torch.interdc.tcp import transport_from_config
+    from antidote_tpu_torch.interdc.wire import DcDescriptor
+
+    t_boot = time.perf_counter()
+    state = ChildState(device)
+    cfg = Config(n_partitions=MDC["n_partitions"], fabric_native=True,
+                 sync_log=sync_log == "1")
+    bus = transport_from_config(cfg, pub_port=int(pub_port),
+                                query_port=int(query_port))
+    ggk.ring_fixpoint.launches = 0
+    dc = DataCenter(dc_id, bus, config=cfg, data_dir=data_dir,
+                    device=device)
+    taps = RemoteTaps(dc.node.partitions, dc.stable.get_stable_snapshot,
+                      dc_id, dc._inbox, MDC["lag_every"])
+    dc.start_bg_processes()
+    ready = time.perf_counter()
+
+    def descriptor():
+        d = dc.descriptor()
+        return {"desc": [d.dc_id, d.n_partitions,
+                         [list(a) for a in d.pub_addrs],
+                         [list(a) for a in d.logreader_addrs]]}
+
+    def connect(desc):
+        did, n, pub, q = desc
+        dc.observe_dc(DcDescriptor(
+            dc_id=did, n_partitions=n,
+            pub_addrs=tuple(tuple(a) for a in pub),
+            logreader_addrs=tuple(tuple(a) for a in q)))
+        return {"ok": True}
+
+    def run(txns, seed, remote_frac):
+        taps.sampling = True
+        return child_mix(dc, txns, MDC["threads"], MDC["keys"], seed,
+                         dc_id, remote=taps.remote_key,
+                         remote_frac=remote_frac)
+
+    def covered(vc, timeout, since_ready=False):
+        a0, l0 = taps.applied, ggk.ring_fixpoint.launches
+        s = wait_covered(dc.stable.get_stable_snapshot, dc_id, VC(vc),
+                         timeout)
+        if since_ready:
+            s = time.perf_counter() - ready
+        return {"seconds": s, "applied": taps.applied - a0,
+                "applied_total": taps.applied,
+                "launches": ggk.ring_fixpoint.launches - l0,
+                "launches_total": ggk.ring_fixpoint.launches}
+
+    def report():
+        return state.report(
+            dc=dc_id, planes=planes_on(dc.node.partitions),
+            gates=sorted({g.device.type for g in dc.dep_gates}),
+            hub=bus._hub is not None, staged=bus._staged,
+            read_dispatches=stats.registry.read_dispatches.value(),
+            fixpoint_launches=ggk.ring_fixpoint.launches,
+            restart_s=ready - t_boot)
+
+    def exit_():
+        rep = report()
+        dc.close()
+        bus.close()
+        return {"exit_report": rep}
+
+    child_out({"ready": True})
+    child_serve(dict(
+        descriptor=descriptor, connect=connect, run=run, lag=taps.take,
+        read=lambda keys, clock: child_read(
+            dc, [tuple(k) for k in keys], clock),
+        clear_caches=lambda: {"cleared": clear_caches(dc.node.partitions)},
+        covered=covered, report=report, prof_start=state.prof_start,
+        prof_stop=state.prof_stop, exit=exit_))
+
+
+def child_member(node_id, data_dir, pub_port, query_port, device):
+    """One node process of a federated multi-node DC (leg c): a
+    NodeServer (``fabric_native=True``) and, once its DC's plan is
+    installed, a NodeInterDc over its own TCP transport on the given
+    ports (the native hub, or raise).  Restarted on the same data
+    directory and ports, it comes back assembled from its persisted
+    plan and re-observes the federation it knew.  Commands: join, info
+    (its member index, transport addresses and the DC's ring by
+    member), federate (observe the other DCs' descriptors and start),
+    run, read, clear_caches, covered (with the ``ring_fixpoint``
+    launches in this process), report, exit."""
+    from antidote_tpu_torch.cluster import NodeServer
+    from antidote_tpu_torch.cluster.federation import (FederatedDescriptor,
+                                                       NodeInterDc)
+    from antidote_tpu_torch.interdc.tcp import transport_from_config
+
+    state = ChildState(device)
+    cfg = Config(n_partitions=FED["partitions"], fabric_native=True,
+                 sync_log=True)
+    srv = NodeServer(node_id, data_dir=data_dir, config=cfg, device=device)
+    box = {}
+
+    def attach():
+        bus = transport_from_config(cfg, pub_port=int(pub_port),
+                                    query_port=int(query_port))
+        box["bus"] = bus
+        box["nid"] = NodeInterDc(srv, bus)
+
+    def join(dc, ring, members):
+        srv.install_cluster(dc, {int(p): n for p, n in ring.items()},
+                            {n: tuple(a) for n, a in members.items()},
+                            fabric=srv.fabric_kind())
+        attach()
+        return {"ok": True}
+
+    def info():
+        nid = box["nid"]
+        order = sorted(srv.plane.members, key=repr)
+        pub, lr = nid.local_addrs()
+        return {"member": nid.member_index, "pub": list(pub),
+                "logreader": list(lr),
+                "ring": [order.index(srv.node.ring[p])
+                         for p in range(cfg.n_partitions)]}
+
+    def federate(descs, timeout=60.0):
+        nid = box["nid"]
+        for d in descs:
+            dc_id, n, pubs, lrs, ring = d
+            nid.observe_dc(FederatedDescriptor(
+                dc_id, n, tuple(tuple(a) for a in pubs),
+                tuple(tuple(a) for a in lrs), tuple(ring)))
+        nid.start()
+        want = {d[0] for d in descs} - {nid.dc_id}
+        t0 = time.perf_counter()
+        while not all(srv.plane.get_stable_snapshot().get_dc(w) > 0
+                      for w in want):
+            if time.perf_counter() - t0 > timeout:
+                raise TimeoutError("federation never stabilized")
+            time.sleep(0.005)
+        return {"seconds": time.perf_counter() - t0}
+
+    def local():
+        return [] if srv.node is None else srv.node._local_partitions()
+
+    def report():
+        nid = box.get("nid")
+        return state.report(
+            node=node_id, fabric=srv.fabric_kind(), planes=planes_on(
+                local()),
+            gates=sorted({g.device.type for g in nid.gates.values()})
+            if nid else [],
+            hub=bool(nid) and box["bus"]._hub is not None,
+            read_dispatches=stats.registry.read_dispatches.value(),
+            fixpoint_launches=ggk.ring_fixpoint.launches)
+
+    def exit_():
+        rep = report()
+        if "nid" in box:
+            box["nid"].close()
+        srv.close()
+        if "bus" in box:
+            box["bus"].close()
+        return {"exit_report": rep}
+
+    restarted = srv.node is not None
+    if restarted:
+        attach()
+        box["nid"].start()
+    child_out({"ready": True, "addr": list(srv.addr),
+               "fabric": srv.fabric_kind(), "restarted": restarted})
+    child_serve(dict(
+        join=join, info=info, federate=federate,
+        run=lambda txns, seed: child_mix(srv.api, txns, FED["threads"],
+                                         FED["keys"], seed, node_id),
+        read=lambda keys, clock: child_read(
+            srv.api, [tuple(k) for k in keys], clock),
+        clear_caches=lambda: {"cleared": clear_caches(local())},
+        covered=lambda vc, timeout: {"seconds": wait_covered(
+            srv.plane.get_stable_snapshot, srv.node.dc_id, VC(vc),
+            timeout), "launches_total": ggk.ring_fixpoint.launches},
+        report=report, exit=exit_))
+
+
+CHILD_ROLES = dict(node=child_node, client=child_client, dc=child_dc,
+                   member=child_member)
+
+
+# --------------------------------------------------- phase 13: the parent
+
+class Child:
+    """One child process of phase 13 (a fresh interpreter: the parent
+    holds a CUDA context, and a fork would share it).  Its stdout
+    carries the JSON-line protocol; its stderr goes to a file beside
+    its data directory, quoted when it fails."""
+
+    def __init__(self, name, role_args, root):
+        os.makedirs(root, exist_ok=True)
+        self.name = name
+        self.args = role_args
+        self.err_path = os.path.join(root, f"{name}.stderr")
+        self.start()
+
+    def start(self):
+        self.t0 = time.perf_counter()
+        self.err = open(self.err_path, "a")
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.p = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--child",
+             *self.args], cwd=here, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=self.err, text=True,
+            env=dict(os.environ, PYTHONPATH=here))
+
+    def stderr_tail(self, n=2500):
+        try:
+            with open(self.err_path) as f:
+                return f.read()[-n:]
+        except OSError:
+            return ""
+
+    def recv(self):
+        line = self.p.stdout.readline()
+        if not line:
+            self.p.wait(timeout=30)
+            fail(f"[cluster] {self.name} exited ({self.p.returncode}); "
+                 f"its stderr ends:\n{self.stderr_tail()}")
+        try:
+            return json.loads(line)
+        except json.JSONDecodeError:
+            return {"line": line.rstrip("\n")}
+
+    def post(self, cmd, **kw):
+        self.p.stdin.write(json.dumps(dict(cmd=cmd, **kw)) + "\n")
+        self.p.stdin.flush()
+
+    def reply(self, what=""):
+        r = self.recv()
+        if "error" in r:
+            fail(f"[cluster] {self.name} {what}: {r['error']}\n"
+                 f"{r.get('trace', '')}")
+        return r
+
+    def send(self, cmd, **kw):
+        self.post(cmd, **kw)
+        return self.reply(cmd)
+
+    def kill9(self):
+        self.p.kill()
+        self.p.wait(timeout=30)
+        self.err.close()
+
+    def finish(self, timeout=60):
+        """Waits for the process to exit; fails on a non-zero code."""
+        try:
+            self.p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.p.kill()
+            self.p.wait()
+            fail(f"[cluster] {self.name} did not exit in {timeout} s")
+        self.err.close()
+        if self.p.returncode != 0:
+            fail(f"[cluster] {self.name} exited {self.p.returncode}; its "
+                 f"stderr ends:\n{self.stderr_tail()}")
+
+
+class NodeChild(Child):
+    """A data node: ``python -m antidote_tpu_torch.cluster`` under
+    ``chip_smoke.py --child node``."""
+
+    def __init__(self, name, root, device):
+        # port 0: the OS picks one; a restart comes back on the
+        # planned address
+        super().__init__(name, [
+            "node", name, "--port", "0", "--data-dir",
+            os.path.join(root, name), "--n-partitions",
+            str(CLUSTER["partitions"]), "--heartbeat-s",
+            str(CLUSTER["heartbeat_s"]), "--sync-log", "--device",
+            device.type], root)
+
+    def serving(self):
+        """Reads the CLI's serving line: the address, assembled or not,
+        and the seconds since the process started."""
+        line = self.recv().get("line", "")
+        if not line.startswith(f"node {self.name} serving on "):
+            fail(f"[cluster] {self.name}: {line!r}\n{self.stderr_tail()}")
+        host, port = line.split(" serving on ")[1].split(" ")[0].split(":")
+        self.addr = [host, int(port)]
+        self.assembled = "(assembled=True)" in line
+        self.up_s = time.perf_counter() - self.t0
+
+
+
+class Steps:
+    """Seconds spent in each named step of a leg, in order."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.s = {}
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        self.s[name] = self.s.get(name, 0.0) + now - self.t
+        self.t = now
+
+
+def stop_all(nodes, clients=()):
+    """Stops data nodes (SIGTERM, all at once) and client or DC
+    children (``exit``, all at once); returns their exit reports."""
+    for n in nodes:
+        n.p.send_signal(signal.SIGTERM)
+    for c in clients:
+        c.post("exit")
+    reps = []
+    for n in nodes:
+        r = n.recv()
+        if "exit_report" not in r:
+            fail(f"[cluster] {n.name} at exit: {r}")
+        reps.append(r["exit_report"])
+    reps += [c.reply("exit")["exit_report"] for c in clients]
+    for c in list(nodes) + list(clients):
+        c.finish()
+    return reps
+
+
+def all_reply(children, what):
+    return [c.reply(what) for c in children]
+
+
+def profiled(holders, drivers, run):
+    """The card's busy share over a short run: torch.profiler in every
+    process of ``holders`` (started and stopped in all at once) around
+    ``run(driver, i)`` posted to each of ``drivers``.  Returns (the
+    drivers' replies, the run's wall seconds, each holder's device
+    ms)."""
+    for h in holders:
+        h.post("prof_start")
+    all_reply(holders, "prof_start")
+    t0 = time.perf_counter()
+    for i, d in enumerate(drivers):
+        run(d, i)
+    out = all_reply(drivers, "profiled run")
+    wall = time.perf_counter() - t0
+    for h in holders:
+        h.post("prof_stop")
+    return out, wall, [r["device_ms"] for r in all_reply(holders,
+                                                          "prof_stop")]
+
+
+def check_reports(what, reports, device, planes=True):
+    """Each child's report: on ``device``, no ERROR record, neither jax
+    nor the JAX package loaded, its planes (where it holds partitions)
+    and gates on ``device``, a native fabric and hub where it has
+    them."""
+    for r in reports:
+        name = r.get("node") or r.get("dc") or r["pid"]
+        if torch.device(r["device"]).type != device.type:
+            fail(f"[cluster] {what}: {name} ran on {r['device']}")
+        if r["errors"]:
+            fail(f"[cluster] {what}: {name} logged {r['errors']} ERROR "
+                 f"records, first {r['first_error']}")
+        if r["foreign"]:
+            fail(f"[cluster] {what}: {name} imported {r['foreign'][:5]}")
+        for key in ("planes", "gates"):
+            if r.get(key) and r[key] != [device.type]:
+                fail(f"[cluster] {what}: {name}'s {key} on {r[key]}")
+        if planes and r.get("planes") == []:
+            fail(f"[cluster] {what}: {name} holds no plane")
+        if "fabric" in r and r["fabric"] != "native":
+            fail(f"[cluster] {what}: {name} runs the {r['fabric']} fabric")
+        if r.get("hub") is False:
+            fail(f"[cluster] {what}: {name} publishes without the native "
+                 f"hub")
+
+
+def tape_merge(tape, tag, out):
+    """A child's run into ``tape`` (MdcTape): its committed updates and
+    its commit VCs' join."""
+    for c_key, s_key, elem in out["tape"]:
+        tape.commit(tag, VC(), (c_key, "counter_pn"), (s_key, "set_aw"),
+                    elem)
+    tape.commit(tag, VC(out["vc"]))
+
+
+def tape_check(what, readers, tape, holders):
+    """Every key the tape touched, read at the tape's VC through each of
+    ``readers`` with every value cache of ``holders`` (the processes
+    holding partitions) emptied first, equals the tape's oracle; the
+    holders' read dispatches must move."""
+    want = tape.expected()
+    keys = sorted(want)
+    for r in readers:
+        for h in holders:
+            h.send("clear_caches")
+        d0 = sum(h.send("report")["read_dispatches"] for h in holders)
+        got = r.send("read", keys=[list(k) for k in keys],
+                     clock=dict(tape.vc))["values"]
+        d1 = sum(h.send("report")["read_dispatches"] for h in holders)
+        if d1 == d0:
+            fail(f"[cluster] {what}: the check through {r.name} read "
+                 f"nothing from the planes")
+        bad = [k for k, v in zip(keys, got) if v != want[k]]
+        if bad:
+            k = bad[0]
+            fail(f"[cluster] {what}: {len(bad)} of {len(keys)} keys read "
+                 f"through {r.name} differ from the tape, first {k}: "
+                 f"{got[keys.index(k)]!r} against {want[k]!r}")
+    return len(keys)
+
+
+def lat_row(runs):
+    lat = np.concatenate([np.asarray(r["lat_ms"], float) for r in runs])
+    return dict(p50_ms=float(np.percentile(lat, 50)),
+                p99_ms=float(np.percentile(lat, 99)), committed=len(lat))
+
+
+def cluster_run(device, root, n_data, txns, check):
+    """One config 6 cluster run: ``n_data`` data nodes and the fleet;
+    warm, then the timed run under each data node's torch.profiler.
+    With ``check``: a kill -9 of one data node, its restart on the
+    card, and the tape check through the cluster.  Returns its row."""
+    n_clients, threads, cores = cluster_fleet()
+    K = CLUSTER["keys"]
+    nodes, clients = [], []
+    steps = Steps()
+    try:
+        nodes = [NodeChild(f"n{i + 1}", root, device)
+                 for i in range(n_data)]
+        clients = [Child(f"c{i + 1}", ["client", f"c{i + 1}",
+                                       os.path.join(root, f"c{i + 1}"),
+                                       device.type], root)
+                   for i in range(n_clients)]
+        for n in nodes:
+            n.serving()
+        addrs = {n.name: n.addr for n in nodes}
+        for c in clients:
+            ready = c.reply("start")
+            addrs[c.name] = ready["addr"]
+            if ready["fabric"] != "native":
+                fail(f"[cluster] {c.name} runs the {ready['fabric']} fabric")
+        steps("start")
+        ring = {str(p): f"n{p % n_data + 1}"
+                for p in range(CLUSTER["partitions"])}
+        names = [c.name for c in clients]
+        clients[0].send("join", dc="dc1", ring=ring, members=addrs,
+                        clients=names, push=[n.name for n in nodes])
+        for c in clients[1:]:
+            c.send("join", dc="dc1", ring=ring, members=addrs,
+                   clients=names)
+        steps("join")
+        for i, c in enumerate(clients):
+            c.post("run", txns=CLUSTER["warm_txns"], threads=threads,
+                   keys=K, seed=900 + i)
+        tape = MdcTape()
+        for c, out in zip(clients, all_reply(clients, "warm run")):
+            tape_merge(tape, c.name, out)
+        steps("warm")
+        t0 = time.perf_counter()
+        for i, c in enumerate(clients):
+            c.post("run", txns=txns, threads=threads, keys=K, seed=i)
+        runs = all_reply(clients, "run")
+        wall = time.perf_counter() - t0
+        steps("run")
+        prof_runs, prof_wall, device_ms = profiled(
+            nodes, clients, lambda c, i: c.post(
+                "run", txns=CLUSTER["profile_txns"], threads=threads,
+                keys=K, seed=500 + i))
+        steps("profiled run")
+        for c, out in zip(clients + clients, runs + prof_runs):
+            tape_merge(tape, c.name, out)
+        done = sum(len(r["lat_ms"]) for r in runs)
+        row = dict(data_nodes=n_data, clients=n_clients,
+                   threads_a_client=threads, cores=cores,
+                   txns_a_client=txns, seconds=wall, txn_per_s=done / wall,
+                   aborts=sum(r["aborts"] for r in runs), **lat_row(runs),
+                   rpcs_a_txn=sum(r["rpcs"] for r in runs) / max(done, 1),
+                   fabric="native",
+                   busy_share=sum(device_ms) / (prof_wall * 1e3),
+                   profiled_txns=sum(len(r["lat_ms"]) for r in prof_runs),
+                   profiled_wall_s=prof_wall,
+                   device_ms_by_node=device_ms)
+        if check:
+            victim = nodes[1]
+            victim.kill9()
+            victim.start()
+            victim.serving()
+            if not victim.assembled:
+                fail(f"[cluster] {victim.name} restarted unassembled")
+            row["restart"] = dict(node=victim.name, seconds=victim.up_s)
+            steps("kill -9 and restart")
+            row["keys_checked"] = tape_check(
+                "leg a after the restart", clients[:1], tape, nodes)
+            steps("check")
+        reports = [n.send("report") for n in nodes]
+        check_reports("leg a", reports, device)
+        row["peak_memory_by_node"] = [r["peak_memory"] for r in reports]
+        exits = stop_all(nodes, clients)
+        nodes = clients = []
+        check_reports("leg a at exit", exits, device, planes=False)
+        row["peak_memory_sum"] = sum(r["peak_memory"] for r in exits)
+        steps("stop")
+        row["steps_s"] = steps.s
+        return row
+    finally:
+        for c in nodes + clients:
+            if c.p.poll() is None:
+                c.p.kill()
+                c.p.wait()
+
+
+def cluster_leg_a(device, root):
+    """Leg a: config 6's cluster mode at 4 data nodes (with the kill -9,
+    the restart and the check), then the same fleet at one data node."""
+    four = cluster_run(device, os.path.join(root, "a4"),
+                       CLUSTER["data_nodes"], CLUSTER["txns"], check=True)
+    one = cluster_run(device, os.path.join(root, "a1"), 1,
+                      CLUSTER["txns"] // 2, check=False)
+    return dict(four=four, one=one,
+                scaling_1_to_4=four["txn_per_s"] / one["txn_per_s"])
+
+
+def free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def dc_children(device, root):
+    out = []
+    for i in range(MDC["n_dcs"]):
+        name = f"dc{i + 1}"
+        out.append(Child(name, ["dc", name, os.path.join(root, name),
+                                str(free_port()), str(free_port()),
+                                device.type,
+                                "1" if i == MDC["n_dcs"] - 1 else "0"],
+                         root))
+    for d in out:
+        d.reply("start")
+    return out
+
+
+def dc_mesh(dcs):
+    descs = [d.send("descriptor")["desc"] for d in dcs]
+    for i, d in enumerate(dcs):
+        for j, desc in enumerate(descs):
+            if i != j:
+                d.send("connect", desc=desc)
+
+
+def cluster_leg_b(device, root):
+    """Leg b: phase 12's three DCs, each in its own process over TCP."""
+    dcs = []
+    steps = Steps()
+    try:
+        dcs = dc_children(device, root)
+        dc_mesh(dcs)
+        tape = MdcTape()
+        steps("start")
+        t0 = time.perf_counter()
+        for i, d in enumerate(dcs):
+            d.post("run", txns=MDC["txns_a"], seed=1 + 100 * i,
+                   remote_frac=MDC["remote_frac"] if i else 0.0)
+        runs = all_reply(dcs, "run")
+        wall = time.perf_counter() - t0
+        steps("run")
+        # phase 12's busy window: profile_txns txns in all, each DC's
+        # share on its threads
+        prof_runs, prof_wall, device_ms = profiled(
+            dcs, dcs, lambda d, i: d.post(
+                "run", txns=MDC["profile_txns"] // len(dcs), seed=7 + i,
+                remote_frac=MDC["remote_frac"] if i else 0.0))
+        steps("profiled run")
+        for d, out in zip(dcs + dcs, runs + prof_runs):
+            tape_merge(tape, d.name, out)
+        for d in dcs:
+            d.post("covered", vc=dict(tape.vc), timeout=120.0)
+        all_reply(dcs, "covered")
+        lags = [d.send("lag", timeout=60.0) for d in dcs]
+        steps("replicated")
+        if any(x["pending"] for x in lags):
+            fail(f"[cluster] leg b: sampled commits never covered: "
+                 f"{[x['pending'] for x in lags]}")
+        lag_s = np.concatenate([np.asarray(x["lag_s"], float)
+                                for x in lags])
+        row = dict(
+            txns_per_dc=MDC["txns_a"], seconds=wall,
+            txn_per_s=sum(len(r["lat_ms"]) for r in runs) / wall,
+            txn_per_s_by_dc=[len(r["lat_ms"]) / r["secs"] for r in runs],
+            aborts=[r["aborts"] for r in runs], **lat_row(runs),
+            replication_lag=dict(
+                samples=len(lag_s),
+                p50_ms=float(np.percentile(lag_s, 50) * 1e3),
+                p99_ms=float(np.percentile(lag_s, 99) * 1e3)),
+            inbox_max=[x["inbox_max"] for x in lags],
+            busy_share=sum(device_ms) / (prof_wall * 1e3),
+            profiled_txns=sum(len(r["lat_ms"]) for r in prof_runs),
+            profiled_wall_s=prof_wall, device_ms_by_dc=device_ms)
+        # dc3 killed while dc1 and dc2 commit phase 12 leg b's count
+        t0 = time.perf_counter()
+        for i, d in enumerate(dcs[:2]):
+            d.post("run", txns=MDC["txns_b"], seed=2 + 100 * i,
+                   remote_frac=0.0)
+        dcs[2].kill9()
+        runs_b = all_reply(dcs[:2], "run while dc3 is down")
+        row["commit_seconds_b"] = time.perf_counter() - t0
+        steps("kill -9 and commit")
+        for d, out in zip(dcs[:2], runs_b):
+            tape_merge(tape, d.name, out)
+        target = VC(runs_b[0]["vc"]).join(VC(runs_b[1]["vc"]))
+        dcs[2].start()
+        dcs[2].reply("restart")
+        caught = dcs[2].send("covered", vc=dict(target), timeout=180.0,
+                             since_ready=True)
+        steps("restart and catch up")
+        row.update(catch_up_s=caught["seconds"],
+                   remote_txns_applied_in_catch_up=caught["applied"],
+                   admitted_per_s=caught["applied"] / caught["seconds"],
+                   dc3_fixpoint_launches=caught["launches_total"])
+        if caught["launches_total"] < 1:
+            fail("[cluster] leg b: dc3's process launched no ring_fixpoint "
+                 "in its catch-up")
+        dc_mesh(dcs)
+        for d in dcs:
+            d.post("covered", vc=dict(tape.vc), timeout=120.0)
+        all_reply(dcs, "covered")
+        steps("replicated")
+        row["keys_checked"] = tape_check("leg b after dc3's restart", dcs,
+                                         tape, dcs)
+        steps("check")
+        reports = [d.send("report") for d in dcs]
+        check_reports("leg b", reports, device)
+        row["dc3_restart_s"] = reports[2]["restart_s"]
+        exits = stop_all((), dcs)
+        dcs = []
+        check_reports("leg b at exit", exits, device)
+        row["peak_memory_by_dc"] = [r["peak_memory"] for r in exits]
+        row["peak_memory_sum"] = sum(row["peak_memory_by_dc"])
+        steps("stop")
+        row["steps_s"] = steps.s
+        return row
+    finally:
+        for d in dcs:
+            if d.p.poll() is None:
+                d.p.kill()
+                d.p.wait()
+
+
+def cluster_leg_c(device, root):
+    """Leg c: two DCs of two node processes each, federated over TCP;
+    then ``kill -9`` of dcB's second member while dcA's members commit,
+    and its restart on the same ports and data directory, which repairs
+    the gap and must read back every touched key.  With two DCs a
+    remote txn's only remote dependency is its own origin's FIFO order,
+    so no gate head ever blocks: each repaired txn applies as it
+    arrives, through the gate's host walk, and ``ring_fixpoint`` (which
+    engages past 48 queued txns, behind heads that wait on another
+    origin, as in leg b's three DCs) is not launched here; the row
+    reports the restarted member's count."""
+    members = []
+    steps = Steps()
+    try:
+        by_dc = {}
+        for dc in FED["dcs"]:
+            by_dc[dc] = [Child(f"{dc}_n{i + 1}", [
+                "member", f"{dc}_n{i + 1}", os.path.join(
+                    root, f"{dc}_n{i + 1}"), str(free_port()),
+                str(free_port()), device.type], root)
+                for i in range(FED["members"])]
+            members += by_dc[dc]
+        addrs = {m.name: m.reply("start")["addr"] for m in members}
+        descs = []
+        for dc, ms in by_dc.items():
+            ring = {str(p): ms[p % len(ms)].name
+                    for p in range(FED["partitions"])}
+            for m in ms:
+                m.send("join", dc=dc, ring=ring,
+                       members={x.name: addrs[x.name] for x in ms})
+            infos = sorted((m.send("info") for m in ms),
+                           key=lambda x: x["member"])
+            descs.append([dc, FED["partitions"],
+                          [x["pub"] for x in infos],
+                          [x["logreader"] for x in infos],
+                          infos[0]["ring"]])
+        for m in members:
+            m.post("federate", descs=descs)
+        all_reply(members, "federate")
+        steps("start")
+        tape = MdcTape()
+        t0 = time.perf_counter()
+        for i, m in enumerate(members):
+            m.post("run", txns=FED["txns"], seed=50 + i)
+        runs = all_reply(members, "run")
+        wall = time.perf_counter() - t0
+        steps("run")
+        for m, out in zip(members, runs):
+            tape_merge(tape, m.name.split("_")[0], out)
+        for m in members:
+            m.send("covered", vc=dict(tape.vc), timeout=120.0)
+        checked = tape_check("leg c", members, tape, members)
+        steps("check")
+        # dcB_n2 killed while dcA's members commit; restarted, it
+        # re-observes the federation and repairs the gap
+        victim, writers = by_dc["dcB"][1], by_dc["dcA"]
+        for i, m in enumerate(writers):
+            m.post("run", txns=FED["txns_down"], seed=70 + i)
+        victim.kill9()
+        runs_down = all_reply(writers, "run while dcB_n2 is down")
+        steps("kill -9 and commit")
+        for m, out in zip(writers, runs_down):
+            tape_merge(tape, "dcA", out)
+        victim.start()
+        if not victim.reply("restart").get("restarted"):
+            fail("[cluster] leg c: dcB_n2 came back without its plan")
+        caught = victim.send("covered", vc=dict(tape.vc), timeout=180.0)
+        steps("restart and catch up")
+        for m in members:
+            m.send("covered", vc=dict(tape.vc), timeout=120.0)
+        checked_after = tape_check("leg c after dcB_n2's restart",
+                                   members, tape, members)
+        steps("check after restart")
+        reports = [m.send("report") for m in members]
+        check_reports("leg c", reports, device)
+        exits = stop_all((), members)
+        members = []
+        check_reports("leg c at exit", exits, device)
+        return dict(
+            dcs=len(FED["dcs"]), members_a_dc=FED["members"],
+            txns=sum(len(r["lat_ms"]) for r in runs), seconds=wall,
+            txn_per_s=sum(len(r["lat_ms"]) for r in runs) / wall,
+            aborts=sum(r["aborts"] for r in runs), **lat_row(runs),
+            keys_checked=checked, keys_checked_after_restart=checked_after,
+            txns_while_down=sum(len(r["lat_ms"]) for r in runs_down),
+            restarted_catch_up_s=caught["seconds"],
+            restarted_fixpoint_launches=caught["launches_total"],
+            fixpoint_launches=[r["fixpoint_launches"] for r in exits],
+            peak_memory_by_member=[r["peak_memory"] for r in exits],
+            peak_memory_sum=sum(r["peak_memory"] for r in exits),
+            steps_s=steps.s)
+    finally:
+        for m in members:
+            if m.p.poll() is None:
+                m.p.kill()
+                m.p.wait()
+
+
+def phase_cluster(device):
+    """Phase 13: legs a, b and c, every process on ``device``.  Returns
+    its row."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    t0 = time.perf_counter()
+    try:
+        row = dict(source=CLUSTER["source"], cores=os.cpu_count(),
+                   federation_source=FED["source"], dcs_source=MDC["source"])
+        for leg, run in (("a", cluster_leg_a), ("b", cluster_leg_b),
+                         ("c", cluster_leg_c)):
+            t1 = time.perf_counter()
+            row[leg] = run(device, os.path.join(root, leg))
+            row[leg]["leg_seconds"] = time.perf_counter() - t1
+            print(f"[cluster] leg {leg}: {json.dumps(row[leg])}",
+                  flush=True)
+        row["seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
                                  "one GPU (the module's docstring).")
@@ -3296,9 +4510,21 @@ def main(argv=None):
                     help="run phases 1, 2 and 11 (the txn path) only")
     ap.add_argument("--multidc-only", action="store_true",
                     help="run phases 1, 2 and 12 (multi-DC) only")
+    ap.add_argument("--cluster-only", action="store_true",
+                    help="run phases 1, 2 and 13 (DCs and nodes in their "
+                    "own processes) only")
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of an earlier commit whose fixpoint "
                     "wrapper phase 10 times in turns with this one")
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--child"]:
+        # a phase 13 child process: its role, then the role's arguments
+        role, rest = argv[1], argv[2:]
+        if role == "node":
+            child_node(rest)
+        else:
+            CHILD_ROLES[role](*rest)
+        return 0
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3318,10 +4544,11 @@ def main(argv=None):
         print(f"[build] ptxas:\n{report}", flush=True)
 
     rows = []
-    only = [o for o in ("gate", "txn", "multidc")
+    only = [o for o in ("gate", "txn", "multidc", "cluster")
             if getattr(args, f"{o}_only")]
     if len(only) > 1:
-        ap.error("at most one of --gate-only, --txn-only, --multidc-only")
+        ap.error("at most one of --gate-only, --txn-only, --multidc-only, "
+                 "--cluster-only")
     everything = not only
     if everything:
         t0 = time.perf_counter()
@@ -3348,6 +4575,14 @@ def main(argv=None):
         txn = phase_txn(device)
     if everything or args.multidc_only:
         multidc = phase_multidc(device)
+    if everything or args.cluster_only:
+        cluster = phase_cluster(device)
+        for r in rows:
+            if r["name"] == "gate_fixpoint":
+                # the same kernel in dc3's own process (phase 13 leg b's
+                # catch-up), counted there from 0
+                r["launches_cluster_dc3"] = cluster["b"][
+                    "dc3_fixpoint_launches"]
     if everything:
         print(json.dumps({"types": types}))
         print(json.dumps({"plane": plane}))
@@ -3357,6 +4592,8 @@ def main(argv=None):
         print(json.dumps({"txn": txn}))
     if everything or args.multidc_only:
         print(json.dumps({"multidc": multidc}))
+    if everything or args.cluster_only:
+        print(json.dumps({"cluster": cluster}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

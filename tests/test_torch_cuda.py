@@ -8,8 +8,9 @@ gate's fixpoint kernel against its plain version and the gate on the
 card against the gate on the CPU (its ring updates without a wait, its
 waits per fixpoint the same at any number of rounds), the kernel spans'
 event pairs, three DataCenters cut and healed on the card against the
-CPU, and the wrappers' refusals.  Every test here skips where no CUDA
-device is present.
+CPU, NodeServers and a federation on the card against the CPU, a node
+process on the card, and the wrappers' refusals.  Every test here
+skips where no CUDA device is present.
 
 The file imports nothing of JAX, so it also runs where JAX is not
 installed (``--noconftest`` skips tests/conftest.py, which imports it):
@@ -791,3 +792,134 @@ def test_multidc_heal_on_card_matches_cpu(cuda_device, tmp_path):
     cpu, _ = _heal_values("cpu", str(tmp_path / "cpu"))
     assert card == cpu
     assert card[0] == card[1] == card[2]
+
+
+def _cluster_values(device, root):
+    """Two NodeServers of one DC (``device``: None is the card) and a
+    one-node DC federated with it over TCP: a short tape of counter and
+    set updates at every member, read back at every member at the
+    tape's clock.  Returns (values by member, the members)."""
+    from antidote_tpu_torch.cluster import NodeServer, create_dc_cluster
+    from antidote_tpu_torch.cluster.federation import (NodeInterDc,
+                                                       connect_federation)
+    from antidote_tpu_torch.interdc.tcp import TcpTransport
+
+    def cfg():
+        return Config(n_partitions=4, heartbeat_s=0.02, fabric_native=True,
+                      clock_wait_timeout_s=20.0)
+
+    a = [NodeServer(f"a{i}", data_dir=f"{root}/a{i}", config=cfg(),
+                    device=device) for i in range(2)]
+    b = [NodeServer("b0", data_dir=f"{root}/b0", config=cfg(),
+                    device=device)]
+    create_dc_cluster("dcA", 4, a)
+    create_dc_cluster("dcB", 4, b)
+    nids = [[NodeInterDc(s, TcpTransport()) for s in a],
+            [NodeInterDc(s, TcpTransport()) for s in b]]
+    members = a + b
+    try:
+        connect_federation(nids)
+        ct = None
+        for i in range(24):
+            srv = members[i % 3]
+            ct = srv.api.update_objects_static(ct, [
+                ((f"k{i % 5}", "counter_pn", "b"), "increment", i),
+                ((f"s{i % 3}", "set_aw", "b"), "add", f"e{i}")])
+        objs = [(f"k{j}", "counter_pn", "b") for j in range(5)] + [
+            (f"s{j}", "set_aw", "b") for j in range(3)]
+        vals = [s.api.read_objects_static(ct, objs)[0] for s in members]
+        return vals, members, nids
+    except BaseException:
+        for dc in nids:
+            for n in dc:
+                n.close()
+        for s in members:
+            s.close()
+        raise
+
+
+@pytest.mark.cuda
+def test_cluster_members_on_card_match_cpu(cuda_device, tmp_path):
+    """NodeServers built without a device hold their partitions' planes
+    and their federated gates on the card, run the native node fabric
+    and the native publish hub, and read what the same tape gives the
+    same members on the CPU."""
+    card, members, nids = _cluster_values(None, str(tmp_path / "card"))
+    try:
+        for s in members:
+            assert s.device.type == "cuda"
+            assert s.fabric_kind() == "native"
+            for pm in s.node._local_partitions():
+                for p in pm.device.planes.values():
+                    subs = p._all_planes() if isinstance(
+                        p, device_plane.MapPlane) else [p]
+                    for sub in subs:
+                        sts = sub.st.values() if isinstance(sub.st, dict) \
+                            else [sub.st]
+                        for st in sts:
+                            for f in fields(st):
+                                v = getattr(st, f.name)
+                                if isinstance(v, torch.Tensor):
+                                    assert v.device.type == "cuda", f.name
+        for dc in nids:
+            for n in dc:
+                assert n.bus._hub is not None
+                assert {g.device.type for g in n.gates.values()} \
+                    == {"cuda"}
+    finally:
+        for dc in nids:
+            for n in dc:
+                n.close()
+        for s in members:
+            s.close()
+    cpu, members, nids = _cluster_values("cpu", str(tmp_path / "cpu"))
+    for dc in nids:
+        for n in dc:
+            n.close()
+    for s in members:
+        s.close()
+    assert card == cpu
+    assert card[0] == card[1] == card[2]
+
+
+@pytest.mark.cuda
+def test_node_process_on_card(cuda_device, tmp_path):
+    """``python -m antidote_tpu_torch.cluster`` with no ``--device``
+    serves on the card, stops on SIGTERM, and imports neither jax nor
+    the JAX package."""
+    import os
+    import signal
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys, runpy; sys.argv = ['antidote_tpu_torch.cluster', "
+            f"'n1', '--data-dir', {str(tmp_path / 'n1')!r}];\n"
+            "import antidote_tpu_torch.cluster.node as m\n"
+            "init = m.NodeServer.__init__\n"
+            "def spy(self, *a, **k):\n"
+            "    init(self, *a, **k)\n"
+            "    print('device', self.device, self.fabric_kind(), "
+            "flush=True)\n"
+            "m.NodeServer.__init__ = spy\n"
+            "try:\n"
+            "    runpy.run_module('antidote_tpu_torch.cluster', "
+            "run_name='__main__')\n"
+            "finally:\n"
+            "    print('foreign', [n for n in sys.modules if n.split('.')[0]"
+            " in ('jax', 'jaxlib', 'antidote_tpu')], flush=True)\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=repo,
+                            env=dict(os.environ, PYTHONPATH=repo),
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        assert proc.stdout.readline().split() == ["device", "cuda",
+                                                  "native"]
+        assert proc.stdout.readline().startswith("node n1 serving on ")
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0
+    assert out.strip().endswith("foreign []")

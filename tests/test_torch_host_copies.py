@@ -6,11 +6,14 @@ store, the hybrid clock, the commit hooks, the online probes, the op log
 with its native core, checkpoints and partition log, the host store,
 the partition manager, the read serve plane, the remote-call errors,
 the coordinator, and the inter-DC plane's pub/sub, gap repair, interest
-routing, bounded-counter transfers and the observability it imports)
-equal their sources line for line, but for the package
-name in their import statements, and so do the single classes,
+routing, bounded-counter transfers and the observability it imports,
+the TCP transport with its native publish hub, and the node fabric in
+Python and native) equal their sources line for line, but for the
+package name in their import statements, and so do the single classes,
 functions and assignments the port copied out of larger modules: a
-change on either side that is not carried over fails here."""
+change on either side that is not carried over fails here.  A copy
+with a listed difference (``DIFFERS``) equals its source once that
+difference is applied."""
 
 import ast
 import os
@@ -26,19 +29,45 @@ COPIES = ["clocks/vc.py", "config.py", "crdt/__init__.py", "crdt/base.py",
           "stats.py", "oplog/records.py", "interdc/wire.py",
           "interdc/termcodec.py", "meta/sender.py", "meta/gossip.py",
           "meta/stable_store.py", "txn/clock.py", "hooks.py",
-          "obs/probe.py", "native/build.py", "native/oplog.cpp",
+          "obs/probe.py", "native/oplog.cpp",
           "oplog/log.py", "oplog/checkpoint.py", "oplog/partition.py",
           "oplog/__init__.py", "mat/host_store.py", "txn/manager.py",
           "mat/serve.py", "cluster/remote.py", "txn/coordinator.py",
           "txn/__init__.py", "obs/pipeline.py", "obs/slo.py",
           "obs/fleet.py", "obs/nativeobs.py", "interdc/interest.py",
           "interdc/transport.py", "interdc/query.py", "interdc/sub_buf.py",
-          "interdc/sender.py", "bcounter.py", "interdc/__init__.py"]
+          "interdc/sender.py", "bcounter.py", "interdc/__init__.py",
+          "native/tel_ring.h", "native/fabric.cpp", "native/nodelink.cpp",
+          "interdc/tcp.py", "cluster/link.py", "cluster/nativelink.py",
+          "cluster/__init__.py"]
+#: copies with one permitted difference: (source lines, port lines)
+#: pairs, each replacing its source lines once
+DIFFERS = {
+    # the library is built under a name of the process's own and
+    # renamed into place: the module lock guards one process only, and
+    # several node and DC processes build at first use
+    "native/build.py": [
+        (['        cmd = ["g++", "-O2", "-fPIC", "-shared", "-std=c++17",',
+          '               "-pthread", src, "-o", out]'],
+         ['        # build under a name of this process\'s own, then rename: the',
+          '        # lock guards one process only, and a node or DC process',
+          '        # loading the library while another builds it must never map',
+          '        # a partial file',
+          '        tmp = f"{out}.{os.getpid()}.tmp"',
+          '        cmd = ["g++", "-O2", "-fPIC", "-shared", "-std=c++17",',
+          '               "-pthread", src, "-o", tmp]']),
+        (['            return None', '        return out'],
+         ['            return None', '        os.replace(tmp, out)',
+          '        return out']),
+    ],
+}
 #: (module, top-level class, function or assigned name) copied alone
 EXCERPTS = [("txn/manager.py", "PartitionRetired"),
             ("oplog/log.py", "_fsync_dir"),
             ("cluster/link.py", "_raise_remote"),
-            ("runtime.py", "COLLECTIVE_LOCK")]
+            ("runtime.py", "COLLECTIVE_LOCK"),
+            ("runtime.py", "tune_runtime"),
+            ("runtime.py", "_tuned")]
 _IMPORT = re.compile(r"^(\s*(?:from|import) )antidote_tpu\b")
 
 
@@ -79,3 +108,15 @@ def test_excerpt_equals_its_source(rel, name):
     if name == "PartitionRetired":     # antidote_tpu/txn/manager.py:48-55
         lines = _read("antidote_tpu", rel)[47:55]
         assert want == "\n".join(lines).rstrip("\n")
+
+
+@pytest.mark.parametrize("rel", sorted(DIFFERS))
+def test_copy_differs_only_as_listed(rel):
+    want = [_IMPORT.sub(r"\1antidote_tpu_torch", line)
+            for line in _read("antidote_tpu", rel)]
+    for old, new in DIFFERS[rel]:
+        at = [i for i in range(len(want))
+              if want[i:i + len(old)] == old]
+        assert len(at) == 1, (rel, old)
+        want[at[0]:at[0] + len(old)] = new
+    assert _read("antidote_tpu_torch", rel) == want
