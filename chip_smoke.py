@@ -2,11 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (antidote_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--gate-only | --txn-only | --multidc-only |
-                           --cluster-only] [--parent DIR]
+                           --cluster-only | --pb-only] [--parent DIR]
 
 ``--gate-only`` runs phases 1, 2 and 10 alone, ``--txn-only`` phases 1,
 2 and 11, ``--multidc-only`` phases 1, 2 and 12, ``--cluster-only``
-phases 1, 2 and 13; ``--parent DIR`` imports
+phases 1, 2 and 13, ``--pb-only`` phases 1, 2 and 14; ``--parent DIR`` imports
 the fixpoint wrapper (``ring_fixpoint``) of another checkout at DIR, an
 earlier commit, from its own package and sources, and phase 10 times
 that kernel in turns with this one on the same inputs.  Run from the
@@ -142,8 +142,9 @@ Phases, each of which fails the run on any error or mismatch:
    60-txn warm run, then 1 and 8 client threads of 1,500 txns: 80 %
    read a counter, increment it and add to a set, 20 % read two
    counters and a set).  Leg b: the same mix at 16 partitions of
-   262,144 keys of each type (BASELINE config 2's 1,048,576 cut by four:
-   filling them ran 3,387 updates/s on an H100's host, 619 s), with
+   131,072 keys of each type (BASELINE config 2's 1,048,576 cut by eight:
+   filling all of them ran 3,387 updates/s on an H100's host, 619 s, and
+   262,144 took 94 s of a 602 s run of the script), with
    device_key_capacity 65,536 and Config's defaults otherwise, after an
    untimed fill in txns of 256 updates.
    Leg c: BASELINE config 9's read stampede (1 partition, 8 readers, 6
@@ -228,9 +229,32 @@ Phases, each of which fails the run on any error or mismatch:
    scaling ratio, RPCs a txn, restart seconds, lag, inbox depth,
    catch-up, each process's peak memory and their sum, the busy share
    summed over the card processes.
+14. The client front end (``PB``): the wire protocol (``pb/``) and the
+   operator console.  Leg a: BASELINE config 6's pb variant (``run_pb``:
+   8 ``PbClient`` threads x 375 static txns, 80 % an update of a
+   counter and a set, 20 % a read of both) against a ``PbServer`` over
+   an ``AntidoteGPU`` of 8 partitions on the card, 2,048 keys a type
+   written by ``warm_keyspace``, beside the same node's direct rows
+   (phase 11's interactive mix, and the pb mix called directly, 8 x 375
+   each); a ~200-txn pb run under torch.profiler; then, the value
+   caches emptied, every touched key read back directly and over the
+   wire against the tape.  Leg b: test_pb_compat's upstream sessions
+   (raw code 107+ frames) to leg a's server and to a server over an
+   ``AntidoteGPU(device="cpu")``: equal replies with the descriptors
+   and commit times cleared, error replies exactly where asked for.
+   Leg c: two ``DataCenter``s on the card behind PB servers, the
+   console's status, ring, descriptor, connect and flags as 11
+   processes (each must exit 0, load no jax and create no CUDA
+   context), then a write at dcA over PB read at dcB over PB at its
+   commit VC.  The phase fails on any plane off the card, any server
+   error but a certification abort in leg a or an asked-for error in
+   leg b, any ERROR record under the port's loggers, any jax module, and
+   any read that disagrees with the tape.  Printed: txn/s, p50 / p99 ms
+   (and by kind), abort rate and the ratio to each direct row, the busy
+   share, the server's peak device memory.
 
 The line before the last carries the nvidia-smi reading, the ones before
-it the ``kernels``, ``cluster``, ``multidc``, ``txn``, ``gate``,
+it the ``kernels``, ``pb``, ``cluster``, ``multidc``, ``txn``, ``gate``,
 ``plane`` and ``types`` JSON objects; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside it, the script exits non-zero and prints
 no result.
@@ -2222,11 +2246,11 @@ TXN = dict(
                   "(main's direct leg: n_partitions=8, sync_log=False, "
                   "K = 2,048, warm_keyspace, a 60-txn warm run, 1 and 8 "
                   "threads x 1,500 txns)"),
-    b=dict(n_partitions=16, keys=1 << 18, key_capacity=65_536, txns=1_500,
+    b=dict(n_partitions=16, keys=1 << 17, key_capacity=65_536, txns=1_500,
            threads=8,
            source="the reference's 16-partition ring (config/vars.config:5)"
                   ", BASELINE config 2's keyspace (1,048,576 keys of each "
-                  "of counter_pn and set_aw) cut to 262,144 a type, "
+                  "of counter_pn and set_aw) cut to 131,072 a type, "
                   "config 6's mix; Config's defaults but "
                   "device_key_capacity"),
     c=dict(readers=8, hot=6, rounds=40, burst=33,
@@ -2246,9 +2270,24 @@ class ErrorRecords(logging.Handler):
     def __init__(self):
         super().__init__(logging.ERROR)
         self.records = []
+        self.diverted = None
 
     def emit(self, record):
-        self.records.append(record)
+        if self.diverted and record.name == self.diverted[0]:
+            self.diverted[1].append(record)
+        else:
+            self.records.append(record)
+
+    @contextmanager
+    def expected(self, logger):
+        """Records of ``logger`` inside go to the list it yields, not
+        to those ``check`` fails on: errors a phase asked for."""
+        seen = []
+        self.diverted = (logger, seen)
+        try:
+            yield seen
+        finally:
+            self.diverted = None
 
     def check(self, what):
         if self.records:
@@ -2391,13 +2430,14 @@ def txn_mix(db, n_threads, txns, K, seed, tape, touched=None, kinds=None,
     return dt, lat, aborts[0]
 
 
-def check_tape(what, db, tape, keys):
-    """Every key of ``keys`` read through read_objects_static at the
-    tape's last commit VC equals the oracle.  The partitions' value
-    caches are emptied first, so the values come from the device planes'
-    folds (the caches answer the mix's reads: checked through them, the
-    planes' state would go unchecked); the check must read from the
-    device.  Returns {key: value}."""
+def check_tape(what, db, tape, keys, reader=None):
+    """Every key of ``keys`` read through read_objects_static (of
+    ``reader``, a client of ``db``, or ``db`` itself) at the tape's last
+    commit VC equals the oracle.  The partitions' value caches are
+    emptied first, so the values come from the device planes' folds (the
+    caches answer the mix's reads: checked through them, the planes'
+    state would go unchecked); the check must read from the device.
+    Returns {key: value}."""
     keys = sorted(keys)
     for pm in db.node.partitions:
         with pm._lock:
@@ -2406,7 +2446,7 @@ def check_tape(what, db, tape, keys):
     got = {}
     for lo in range(0, len(keys), TXN["chunk"]):
         part = keys[lo:lo + TXN["chunk"]]
-        vals, _ = db.read_objects_static(
+        vals, _ = (reader or db).read_objects_static(
             tape.vc, [(k, tn, "bucket") for k, tn in part])
         got.update(zip(part, vals))
     c = {k: v - c0[k] for k, v in txn_counts().items()}
@@ -4501,6 +4541,489 @@ def phase_cluster(device):
     return row
 
 
+# ------------------------------------ phase 14: the client front end
+
+#: phase 14: the wire protocol (pb/) and the operator console.  Leg a is
+#: BASELINE config 6's pb variant as its bench runs it, with the direct
+#: API's rows on the same node; leg c two DCs behind their PB servers
+PB = dict(
+    a=dict(n_partitions=8, keys=2_048, warm_txns=60, threads=8,
+           txns=max(1_500 // 4, 50), seed=100, profile_txns=200,
+           source="BASELINE config 6's pb variant, benches/config6_txn.py:"
+                  "129-172 (run_pb: 8 PbClient threads x max(1,500 // 4, "
+                  "50) = 375 txns, 80 % static updates of a counter_pn "
+                  "and a set_aw, 20 % static reads of both) as main runs "
+                  "it at :393-417 (n_partitions=8, sync_log=False, K = "
+                  "2,048 keys a type, warm_keyspace, a 60-txn warm run); "
+                  "the direct rows: phase 11 leg a's interactive mix at "
+                  "8 threads, cut to 375 txns a thread (phase 11: 1,500), "
+                  "and run_pb's mix called directly"),
+    c=dict(n_partitions=4, heartbeat_s=0.02,
+           source="tests/pb/test_admin.py's two-DC console session "
+                  "(status, ring, descriptor, connect, flags) on the card"),
+)
+#: the only server error leg a may meet: a certification abort
+#: (txn/manager.py's CertificationError)
+PB_CERTIFICATION = ("committed after snapshot", "prepared by concurrent txn")
+#: runs ``python -m antidote_tpu_torch.console ARGS`` and, at exit,
+#: writes to stderr the modules of jax or the JAX package it loaded and
+#: whether it created a CUDA context
+CONSOLE_PROBE = (
+    "import atexit, json, runpy, sys\n"
+    "def _report():\n"
+    "    import torch\n"
+    "    bad = sorted(m for m in sys.modules\n"
+    "                 if m.split('.')[0] in ('jax', 'jaxlib', 'antidote_tpu'))\n"
+    "    sys.stderr.write('\\nPROBE ' + json.dumps(\n"
+    "        {'foreign': bad, 'cuda': torch.cuda.is_initialized()}) + '\\n')\n"
+    "atexit.register(_report)\n"
+    "sys.argv[0] = 'antidote_tpu_torch.console'\n"
+    "runpy.run_module('antidote_tpu_torch.console', run_name='__main__',\n"
+    "                 alter_sys=True)\n")
+
+
+def static_mix(client, n_threads, txns, K, seed, tape, touched):
+    """benches/config6_txn.py's run_pb worker, the same draws in the
+    same order: ``n_threads`` threads, each over its own ``client()``
+    (a PbClient, or the node itself), of ``txns`` static transactions,
+    80 % an update (a counter_pn increment and a set_aw add of one of
+    ``e0``-``e7``), 20 % a read of one counter and one set.  Updates go
+    to ``tape``, every key a txn named to ``touched``; a server error
+    other than a certification abort fails.  Returns (wall seconds,
+    latencies of the committed txns, aborts, latencies by kind)."""
+    from antidote_tpu_torch.pb import PbServerError
+
+    lat, aborts, kinds = [], [0], {"update": [], "read": []}
+    lock = threading.Lock()
+
+    def worker(tid):
+        rng = np.random.default_rng(seed + tid)
+        my_lat, my_keys = [], set()
+        my_kinds = {"update": [], "read": []}
+        with client() as cl:
+            for _ in range(txns):
+                c_key = (f"c{rng.integers(0, K)}", "counter_pn", "bucket")
+                s_key = (f"s{rng.integers(0, K)}", "set_aw", "bucket")
+                t0 = time.perf_counter()
+                kind = "update" if rng.random() < 0.8 else "read"
+                try:
+                    if kind == "update":
+                        elem = b"e%d" % int(rng.integers(8))
+                        vc = cl.update_objects_static(None, [
+                            (c_key, "increment", 1), (s_key, "add", elem)])
+                        tape.commit(vc, c_key[0], s_key[0], elem)
+                    else:
+                        cl.read_objects_static(None, [c_key, s_key])
+                except (PbServerError, TransactionAborted) as e:
+                    if not any(m in str(e) for m in PB_CERTIFICATION):
+                        fail(f"[pb] a server error that is no "
+                             f"certification abort: {e}")
+                    with lock:
+                        aborts[0] += 1
+                    continue
+                my_lat.append(time.perf_counter() - t0)
+                my_kinds[kind].append(my_lat[-1])
+                my_keys.update(((c_key[0], "counter_pn"),
+                                (s_key[0], "set_aw")))
+        with lock:
+            lat.extend(my_lat)
+            for k, v in my_kinds.items():
+                kinds[k].extend(v)
+            touched.update(my_keys)
+
+    dt = run_threads(worker, n_threads)
+    return dt, lat, aborts[0], kinds
+
+
+def mix_row(dt, lat, aborts, kinds=None):
+    """A timed run's row: txn/s, p50 / p99 ms, aborts; with ``kinds``
+    the p50 / p99 of each kind of txn."""
+    lat_ms = np.asarray(lat) * 1e3
+    row = dict(txn_per_s=len(lat) / dt, p50_ms=float(np.percentile(
+        lat_ms, 50)), p99_ms=float(np.percentile(lat_ms, 99)),
+        committed=len(lat), aborts=aborts,
+        abort_rate=aborts / (aborts + len(lat)), seconds=dt)
+    for k, v in (kinds or {}).items():
+        row[f"{k}_p50_ms"], row[f"{k}_p99_ms"] = (
+            float(np.percentile(np.asarray(v) * 1e3, q)) for q in (50, 99))
+    return row
+
+
+def pb_busy(port, K, tape, n):
+    """The card's busy share over ``n`` txns of the pb mix on one
+    client, under torch.profiler: the server's handler threads drive
+    the card from this process."""
+    from antidote_tpu_torch.pb import PbClient
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        static_mix(lambda: PbClient(port=port), 1, n, K, 7, tape, set())
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in ops) / 1e3
+    return dict(busy_share=device_ms / wall_ms, wall_ms=wall_ms,
+                device_ms=device_ms, txns=n)
+
+
+def pb_leg_a(errors):
+    """Leg a, then leg b on leg a's server.  Returns both rows."""
+    from antidote_tpu_torch.pb import PbClient, PbServer
+
+    shp, K = PB["a"], PB["a"]["keys"]
+    tape = TxnTape()
+    with txn_db(Config(n_partitions=shp["n_partitions"],
+                       sync_log=False)) as db:
+        txn_planes(db, "cuda")
+        t0 = time.perf_counter()
+        n_fill = txn_fill(db, K, tape)
+        fill_s = time.perf_counter() - t0
+        txn_mix(db, shp["threads"], shp["warm_txns"], K, 999, tape)
+        server = PbServer(db, port=0).start()
+        try:
+            touched = set()
+            row = dict(source=shp["source"], partitions=shp["n_partitions"],
+                       keys_per_type=K, fill_ops=n_fill, fill_s=fill_s)
+            row["direct"] = mix_row(*txn_mix(
+                db, shp["threads"], shp["txns"], K, 2, tape, touched))
+            row["direct_static"] = mix_row(*static_mix(
+                lambda: nullcontext(db), shp["threads"], shp["txns"], K,
+                shp["seed"], tape, touched))
+            torch.cuda.reset_peak_memory_stats()
+            row["pb"] = mix_row(*static_mix(
+                lambda: PbClient(port=server.port), shp["threads"],
+                shp["txns"], K, shp["seed"], tape, touched))
+            torch.cuda.synchronize()
+            row["pb"]["peak_memory"] = torch.cuda.max_memory_allocated()
+            for k in ("direct", "direct_static"):
+                row[f"pb_over_{k}"] = (row["pb"]["txn_per_s"]
+                                       / row[k]["txn_per_s"])
+            print(f"[pb] leg a: pb {row['pb']['txn_per_s']:.0f} txn/s "
+                  f"(p50 {row['pb']['p50_ms']:.3f} ms, p99 "
+                  f"{row['pb']['p99_ms']:.3f} ms, abort rate "
+                  f"{row['pb']['abort_rate']:.4f}); direct interactive "
+                  f"{row['direct']['txn_per_s']:.0f}, direct static "
+                  f"{row['direct_static']['txn_per_s']:.0f} txn/s",
+                  flush=True)
+            row["profile"] = pb_busy(server.port, K, tape,
+                                     shp["profile_txns"])
+            t1 = time.perf_counter()
+            check_tape("pb leg a, directly", db, tape, touched)
+            c0 = txn_counts()
+            with PbClient(port=server.port) as cl:
+                check_tape("pb leg a, over the wire", db, tape, touched, cl)
+            row["wire_device_reads"] = txn_counts()["dev_reads"] \
+                - c0["dev_reads"]
+            row["checked"] = dict(keys=len(touched),
+                                  seconds=time.perf_counter() - t1)
+            print(f"[pb] leg a: {len(touched)} keys read directly and over "
+                  f"the wire equal the tape; busy share "
+                  f"{row['profile']['busy_share']}", flush=True)
+            txn_planes(db, "cuda")
+            leg_b = pb_leg_b(server.port, errors)
+        finally:
+            server.stop()
+    return row, leg_b
+
+
+def compat_sessions():
+    """tests/pb/test_pb_compat.py's sessions as upstream requests:
+    (message maker taking the session's state, whether an error reply
+    was asked for).  Interactive counter / set / register / flag, a
+    static update and read of a map, a read under an unknown
+    descriptor, and the error and abort flow."""
+    from antidote_tpu_torch.pb import antidote_compat_pb2 as cpb
+
+    def bound(key, t):
+        bo = cpb.ApbBoundObject()
+        bo.key, bo.type, bo.bucket = key, t, b"bkt"
+        return bo
+
+    objs = [(b"pb_c1", cpb.COUNTER), (b"pb_s1", cpb.ORSET),
+            (b"pb_r1", cpb.LWWREG), (b"pb_f1", cpb.FLAG_EW)]
+
+    def start(st):
+        m = cpb.ApbStartTransaction()
+        m.properties.SetInParent()
+        return m
+
+    def update(st):
+        m = cpb.ApbUpdateObjects()
+        m.transaction_descriptor = st["txd"]
+        for (key, t) in objs:
+            u = m.updates.add()
+            u.boundobject.CopyFrom(bound(key, t))
+            if t == cpb.COUNTER:
+                u.operation.counterop.inc = 5
+            elif t == cpb.ORSET:
+                u.operation.setop.optype = cpb.ApbSetUpdate.ADD
+                u.operation.setop.adds.extend([b"x", b"y"])
+            elif t == cpb.LWWREG:
+                u.operation.regop.value = b"hello"
+            else:
+                u.operation.flagop.value = True
+        return m
+
+    def read(st):
+        m = cpb.ApbReadObjects()
+        m.transaction_descriptor = st["txd"]
+        for key, t in objs:
+            m.boundobjects.add().CopyFrom(bound(key, t))
+        return m
+
+    def txn_end(cls, txd=None):
+        def make(st):
+            m = cls()
+            m.transaction_descriptor = st["txd"] if txd is None else txd
+            return m
+        return make
+
+    def static_read(key, t):
+        def make(st):
+            m = cpb.ApbStaticReadObjects()
+            m.transaction.timestamp = st["ct"]
+            m.objects.add().CopyFrom(bound(key, t))
+            return m
+        return make
+
+    def map_update(st):
+        m = cpb.ApbStaticUpdateObjects()
+        m.transaction.SetInParent()
+        u = m.updates.add()
+        u.boundobject.CopyFrom(bound(b"pb_m1", cpb.GMAP))
+        nest = u.operation.mapop.updates.add()
+        nest.key.key, nest.key.type = b"hits", cpb.COUNTER
+        nest.update.counterop.inc = 3
+        return m
+
+    def unknown_read(st):
+        m = cpb.ApbReadObjects()
+        m.transaction_descriptor = b"nope"
+        m.boundobjects.add().CopyFrom(bound(b"x", cpb.COUNTER))
+        return m
+
+    def mismatch(st):
+        m = cpb.ApbUpdateObjects()
+        m.transaction_descriptor = st["txd"]
+        u = m.updates.add()
+        u.boundobject.CopyFrom(bound(b"g", cpb.ORSET))
+        u.operation.counterop.inc = 1
+        return m
+
+    return [
+        [(start, False), (update, False), (read, False),
+         (txn_end(cpb.ApbCommitTransaction), False),
+         (static_read(b"pb_c1", cpb.COUNTER), False)],
+        [(map_update, False), (static_read(b"pb_m1", cpb.GMAP), False)],
+        [(unknown_read, True)],
+        [(start, False), (mismatch, True),
+         (txn_end(cpb.ApbAbortTransaction), False),
+         (txn_end(cpb.ApbCommitTransaction), True)],
+    ]
+
+
+def compat_replies(port):
+    """Every session of ``compat_sessions`` as raw frames over one
+    connection.  Returns each reply as (code, bytes with the opaque
+    transaction descriptor and commit time cleared, asked for an
+    error)."""
+    import socket
+    import struct
+
+    from antidote_tpu_torch.pb import antidote_compat_pb2 as cpb
+    from antidote_tpu_torch.pb import codec, compat
+
+    names = {v: k for k, v in compat.CODES.items()}
+    out = []
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+        for session in compat_sessions():
+            st = {"txd": b"", "ct": b""}
+            for make, asked in session:
+                msg = make(st)
+                body = msg.SerializeToString()
+                s.sendall(struct.pack(">IB", len(body) + 1,
+                                      compat.CODES[type(msg).__name__])
+                          + body)
+                code, body = codec.read_frame(s)
+                resp = getattr(cpb, names[code])()
+                resp.ParseFromString(body)
+                name = names[code]
+                if name == "ApbStartTransactionResp":
+                    st["txd"] = resp.transaction_descriptor
+                    resp.transaction_descriptor = b""
+                elif name == "ApbCommitResp":
+                    st["ct"] = resp.commit_time
+                    resp.commit_time = b""
+                elif name == "ApbStaticReadObjectsResp":
+                    resp.committime.commit_time = b""
+                out.append((code, resp.SerializeToString(), asked))
+    return out
+
+
+def pb_leg_b(port, errors):
+    """Leg b: the upstream protocol's sessions to leg a's server on the
+    card and to a server over ``AntidoteGPU(device="cpu")`` in this
+    process: equal replies, an error reply exactly where one was asked
+    for, and each error logged once by the server."""
+    from antidote_tpu_torch.pb import PbServer, compat
+
+    t0 = time.perf_counter()
+    with errors.expected("antidote_tpu_torch.pb.server") as logged:
+        card = compat_replies(port)
+        with txn_db(Config(n_partitions=PB["a"]["n_partitions"],
+                           sync_log=False), device="cpu") as cpu_db:
+            server = PbServer(cpu_db, port=0).start()
+            try:
+                cpu = compat_replies(server.port)
+            finally:
+                server.stop()
+    err = compat.CODES["ApbErrorResp"]
+    if [(c, b) for c, b, _ in card] != [(c, b) for c, b, _ in cpu]:
+        diff = next(i for i, (a, b) in enumerate(zip(card, cpu)) if a != b)
+        fail(f"[pb] leg b: reply {diff} differs between the card's server "
+             f"and the CPU's: {card[diff]!r} against {cpu[diff]!r}")
+    wrong = [i for i, (c, _b, asked) in enumerate(card)
+             if (c == err) != asked]
+    if wrong:
+        fail(f"[pb] leg b: replies {wrong} are error replies where none was "
+             f"asked for, or the other way round")
+    n_err = sum(asked for _c, _b, asked in card)
+    if len(logged) != 2 * n_err:
+        fail(f"[pb] leg b: {len(logged)} ERROR records from the servers for "
+             f"{2 * n_err} asked-for errors")
+    row = dict(frames=len(card), error_replies=n_err,
+               seconds=time.perf_counter() - t0)
+    print(f"[pb] leg b: {len(card)} upstream replies equal between the "
+          f"card's server and the CPU's ({n_err} asked-for errors)",
+          flush=True)
+    return row
+
+
+def consoles(runs):
+    """Console commands, each its own process, all at once: ``runs``
+    holds (server port, arguments).  Fails unless every process exits
+    0, loads no module of jax or the JAX package and creates no CUDA
+    context.  Returns each one's stdout."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", CONSOLE_PROBE, "--port", str(port), *args],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for port, args in runs]
+    outs = []
+    for (port, args), p in zip(runs, procs):
+        try:
+            stdout, stderr = p.communicate(timeout=120)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        probe = [json.loads(ln[6:]) for ln in stderr.splitlines()
+                 if ln.startswith("PROBE ")]
+        if p.returncode != 0 or probe != [{"foreign": [], "cuda": False}]:
+            fail(f"[pb] leg c: console {' '.join(args)} exited "
+                 f"{p.returncode}, probe {probe}: {stderr[-1000:]}")
+        outs.append(stdout)
+    return outs
+
+
+def pb_leg_c(device):
+    """Leg c: two DataCenters on the card over an InProcBus, each behind
+    a PbServer; the console's status, ring, descriptor, connect and
+    flags at them; a write at dcA over PB read at dcB over PB at its
+    commit VC (the read waits until dcB's stable snapshot covers it)."""
+    from antidote_tpu_torch.interdc import InProcBus
+    from antidote_tpu_torch.interdc.dc import DataCenter
+    from antidote_tpu_torch.pb import PbClient, PbServer, codec
+
+    shp = PB["c"]
+    t0 = time.perf_counter()
+    bus = InProcBus()
+    root = tempfile.mkdtemp(prefix="chip_smoke_pb_")
+    dcs, servers = [], []
+    try:
+        for name in ("dcA", "dcB"):
+            dcs.append(DataCenter(name, bus, config=Config(
+                n_partitions=shp["n_partitions"],
+                heartbeat_s=shp["heartbeat_s"]),
+                data_dir=os.path.join(root, name), device=device))
+        for dc in dcs:
+            dc.start_bg_processes()
+            servers.append(PbServer(dc, port=0).start())
+        txn_planes(dcs[0], "cuda")
+        ports = [s.port for s in servers]
+        files = [os.path.join(root, f"{n}.desc") for n in ("a", "b")]
+        out = consoles([(p, a) for i, p in enumerate(ports) for a in (
+            ["status"], ["ring"], ["descriptor", files[i]])])
+        for i, name in enumerate(("dcA", "dcB")):
+            st, ring, desc = out[3 * i:3 * i + 3]
+            if json.loads(st)["dc_id"] != name \
+                    or f"dc {name}: {shp['n_partitions']} partitions" \
+                    not in ring or name not in desc:
+                fail(f"[pb] leg c: {name}'s console output: {st[:200]!r} "
+                     f"{ring[:200]!r} {desc!r}")
+            with open(files[i], "rb") as f:
+                if codec.descriptor_from_bytes(f.read()).dc_id != name:
+                    fail(f"[pb] leg c: {name}'s descriptor file")
+        out = consoles([(ports[0], ["connect", files[1]]),
+                        (ports[1], ["connect", files[0]]),
+                        (ports[0], ["flag", "set", "sync_log", "on"])])
+        if "dcB" not in out[0] or "dcA" not in out[1] \
+                or json.loads(out[2]) != {"sync_log": True}:
+            fail(f"[pb] leg c: connect and flag set printed {out!r}")
+        out = consoles([(ports[0], ["flag", "get", "sync_log"]),
+                        (ports[1], ["flag", "get", "sync_log"])])
+        if [json.loads(o) for o in out] != [{"sync_log": True},
+                                            {"sync_log": False}]:
+            fail(f"[pb] leg c: flags read {out!r}")
+        objs = [("pb_c", "counter_pn", "b"), ("pb_s", "set_aw", "b")]
+        t1 = time.perf_counter()
+        with PbClient(port=ports[0]) as a, PbClient(port=ports[1]) as b:
+            ct = a.update_objects_static(None, [
+                (objs[0], "increment", 6), (objs[1], "add", b"x")])
+            vals, _ = b.read_objects_static(ct, objs)
+        seen_s = time.perf_counter() - t1
+        if vals != [6, [b"x"]]:
+            fail(f"[pb] leg c: dcB read {vals!r} of dcA's write")
+        for dc in dcs:
+            txn_planes(dc, "cuda")
+        row = dict(source=shp["source"], consoles=11,
+                   remote_write_seen_s=seen_s,
+                   seconds=time.perf_counter() - t0)
+        print(f"[pb] leg c: 11 console processes exited 0 with no CUDA "
+              f"context and no jax; dcA's write read at dcB over PB after "
+              f"{seen_s * 1e3:.1f} ms", flush=True)
+        return row
+    finally:
+        for s in servers:
+            s.stop()
+        for dc in dcs:
+            dc.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_pb(device):
+    """Phase 14: legs a, b and c on ``device``.  Returns its row."""
+    errors = ErrorRecords()
+    port_log = logging.getLogger("antidote_tpu_torch")
+    port_log.addHandler(errors)
+    try:
+        t0 = time.perf_counter()
+        row = {}
+        row["a"], row["b"] = pb_leg_a(errors)
+        row["c"] = pb_leg_c(device)
+        errors.check("phase 14")
+        if foreign_modules():
+            fail(f"[pb] modules of jax or the JAX package loaded: "
+                 f"{foreign_modules()[:5]}")
+        row["seconds"] = time.perf_counter() - t0
+    finally:
+        port_log.removeHandler(errors)
+    return row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
                                  "one GPU (the module's docstring).")
@@ -4513,6 +5036,9 @@ def main(argv=None):
     ap.add_argument("--cluster-only", action="store_true",
                     help="run phases 1, 2 and 13 (DCs and nodes in their "
                     "own processes) only")
+    ap.add_argument("--pb-only", action="store_true",
+                    help="run phases 1, 2 and 14 (the wire protocol and "
+                    "the console) only")
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of an earlier commit whose fixpoint "
                     "wrapper phase 10 times in turns with this one")
@@ -4544,11 +5070,11 @@ def main(argv=None):
         print(f"[build] ptxas:\n{report}", flush=True)
 
     rows = []
-    only = [o for o in ("gate", "txn", "multidc", "cluster")
+    only = [o for o in ("gate", "txn", "multidc", "cluster", "pb")
             if getattr(args, f"{o}_only")]
     if len(only) > 1:
         ap.error("at most one of --gate-only, --txn-only, --multidc-only, "
-                 "--cluster-only")
+                 "--cluster-only, --pb-only")
     everything = not only
     if everything:
         t0 = time.perf_counter()
@@ -4583,6 +5109,8 @@ def main(argv=None):
                 # catch-up), counted there from 0
                 r["launches_cluster_dc3"] = cluster["b"][
                     "dc3_fixpoint_launches"]
+    if everything or args.pb_only:
+        pb = phase_pb(device)
     if everything:
         print(json.dumps({"types": types}))
         print(json.dumps({"plane": plane}))
@@ -4594,6 +5122,8 @@ def main(argv=None):
         print(json.dumps({"multidc": multidc}))
     if everything or args.cluster_only:
         print(json.dumps({"cluster": cluster}))
+    if everything or args.pb_only:
+        print(json.dumps({"pb": pb}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,9 @@ with its native core, checkpoints and partition log, the host store,
 the partition manager, the read serve plane, the remote-call errors,
 the coordinator, and the inter-DC plane's pub/sub, gap repair, interest
 routing, bounded-counter transfers and the observability it imports,
-the TCP transport with its native publish hub, and the node fabric in
-Python and native) equal their sources line for line, but for the
+the TCP transport with its native publish hub, the node fabric in
+Python and native, and the wire protocol with its generated protobuf
+modules and their schemas) equal their sources line for line, but for the
 package name in their import statements, and so do the single classes,
 functions and assignments the port copied out of larger modules: a
 change on either side that is not carried over fails here.  A copy
@@ -39,7 +40,10 @@ COPIES = ["clocks/vc.py", "config.py", "crdt/__init__.py", "crdt/base.py",
           "interdc/sender.py", "bcounter.py", "interdc/__init__.py",
           "native/tel_ring.h", "native/fabric.cpp", "native/nodelink.cpp",
           "interdc/tcp.py", "cluster/link.py", "cluster/nativelink.py",
-          "cluster/__init__.py"]
+          "cluster/__init__.py", "pb/antidote.proto",
+          "pb/antidote_compat.proto", "pb/antidote_pb2.py",
+          "pb/antidote_compat_pb2.py", "pb/codec.py", "pb/compat.py",
+          "pb/client.py", "pb/server.py"]
 #: copies with one permitted difference: (source lines, port lines)
 #: pairs, each replacing its source lines once
 DIFFERS = {
@@ -60,7 +64,45 @@ DIFFERS = {
          ['            return None', '        os.replace(tmp, out)',
           '        return out']),
     ],
+    # the generated modules are never regenerated: the docstring says
+    # why they are byte-identical in place of how to regenerate them
+    "pb/__init__.py": [
+        (['Regenerate ``antidote_pb2.py`` after editing ``antidote.proto``:',
+          '``protoc --python_out=. antidote.proto`` in this directory.'],
+         ['``antidote_pb2.py`` and ``antidote_compat_pb2.py`` are byte-identical',
+          'copies of the JAX package\'s, never regenerated, and the ``.proto``',
+          'files are never edited: each registers its file (``antidote.proto``,',
+          'package ``antidotepb``; ``antidote_tpu/pb/antidote_compat.proto``,',
+          'package ``antidotepb.compat``) in protobuf\'s default descriptor pool,',
+          'which accepts a second registration only of the identical serialized',
+          'descriptor.  A process that imports both packages (every parity test',
+          'does) then shares one set of message classes between them, so the',
+          'server\'s dispatch by ``type(req)`` and the codec\'s ``MSG_CODES`` see',
+          'one class for both packages.']),
+    ],
+    # the JAX pin is gone (the console never touches the card, and
+    # importing torch creates no CUDA context): the docstring says so
+    "console.py": [
+        (['    flag set NAME VALUE     set a runtime flag (bool/int/str inferred)'],
+         ['    flag set NAME VALUE     set a runtime flag (bool/int/str inferred)',
+          '',
+          'The console only speaks TCP: it must come up instantly and never touch',
+          '(or wait on) the card.  The package import pulls in torch, and',
+          'importing torch creates no CUDA context; nothing here creates one.']),
+        (['# the console only speaks TCP — it must come up instantly and never',
+          '# touch (or wait on) an accelerator backend, so pin jax to CPU before',
+          '# the package import pulls it in',
+          'import jax',
+          '',
+          'jax.config.update("jax_platforms", "cpu")',
+          ''],
+         []),
+    ],
 }
+#: copies whose bytes equal their source's: protobuf's generated modules
+#: register their serialized descriptors in one pool (pb/__init__.py)
+BYTES = ["pb/antidote_pb2.py", "pb/antidote_compat_pb2.py",
+         "pb/antidote.proto", "pb/antidote_compat.proto"]
 #: (module, top-level class, function or assigned name) copied alone
 EXCERPTS = [("txn/manager.py", "PartitionRetired"),
             ("oplog/log.py", "_fsync_dir"),
@@ -120,3 +162,10 @@ def test_copy_differs_only_as_listed(rel):
         assert len(at) == 1, (rel, old)
         want[at[0]:at[0] + len(old)] = new
     assert _read("antidote_tpu_torch", rel) == want
+
+
+@pytest.mark.parametrize("rel", BYTES)
+def test_copy_is_byte_identical(rel):
+    with open(os.path.join(REPO, "antidote_tpu", rel), "rb") as a, \
+            open(os.path.join(REPO, "antidote_tpu_torch", rel), "rb") as b:
+        assert a.read() == b.read()

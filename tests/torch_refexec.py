@@ -13,13 +13,14 @@ subprocess drivers start the port's harnesses there (dc_proc.py,
 node_proc.py) in place of the reference's.
 
 :class:`Recorder` tallies, for one package and one case, every key the
-case updated through the client API, every committed update and every
-commit VC, and reads the final values of those keys at the join of the
-commits on one live endpoint of each DC whenever an endpoint closes
-after new commits (unless a member is parked mid-resize); the last
-such snapshot is the case's final state.
+case updated through the client API in a transaction that committed,
+every committed update and every commit VC, and reads the final values
+of those keys at the join of the commits on one live endpoint of each
+DC whenever an endpoint closes after new commits (unless a member is
+parked mid-resize); the last such snapshot is the case's final state.
 :func:`assert_finals` holds a case's final states: a snapshot exists
-wherever the case wrote keys in this process and no read of it raised;
+wherever the case committed writes in this process and no read of it
+raised;
 for a compared case both packages committed the same updates in the
 same order from the case's own thread and read equal values, and
 otherwise each package's DCs read the same values.
@@ -33,6 +34,7 @@ import numbers
 import os
 import re
 import threading
+import time
 import types
 from importlib import import_module
 
@@ -43,25 +45,48 @@ _IMPORT = re.compile(r"^(\s*(?:from|import) )antidote_tpu\b")
 _FIXTURE = re.compile(r"^\s*@pytest\.fixture\b.*$")
 _FROM_TESTS = re.compile(
     r"^(\s*)from (\.|tests\.[\w.]+\.)(\w+) import ([\w, ]+?)\s*$")
+#: name prefixes of a DC's own background threads that commit through
+#: the client API (obs/probe.py's causal probe writes and retires its
+#: probe elements): their commits are not the case's, and a final read
+#: at their join would wait on probe traffic still in flight
+_BACKGROUND = ("causal-probe-",)
+#: the causal probe's keys (obs/probe.py's KEY_BUCKET), which it writes
+#: in the background whoever calls it: no case's value
+_PROBE_BUCKET = ("__obs__",)
 _IMPORT_CAUSAL = re.compile(r"^(\s*)import causal_core as (\w+)\s*$")
+#: the port's client API class is AntidoteGPU
+_API_TPU = re.compile(r"^(\s*from antidote_tpu_torch\.api import .*)"
+                      r"\bAntidoteTPU\b")
 
 
 def cases(rel):
     """(qualified test name, parameter dicts) of every test in a
     reference file, read from its syntax tree (no import at
     collection); each parametrized function gives one entry per
-    parameter set."""
+    parameter set, and so does each parameter of a fixture with
+    ``params`` the test names (its value under the fixture's name)."""
     with open(os.path.join(REPO, rel), encoding="utf-8") as f:
         tree = ast.parse(f.read())
+    fixture_params = {n.name: p for n, p in _fixture_params(tree)}
+    #: module-level names a parametrize mark may name
+    consts = {t.id: n.value for n in tree.body if isinstance(n, ast.Assign)
+              for t in n.targets if isinstance(t, ast.Name)}
 
     def params(fn):
         out = [{}]
+        for arg in fn.args.args:
+            if arg.arg in fixture_params:
+                out = [dict(o, **{arg.arg: v}) for o in out
+                       for v in fixture_params[arg.arg]]
         for dec in fn.decorator_list:
             if isinstance(dec, ast.Call) \
                     and ast.unparse(dec.func) == "pytest.mark.parametrize":
                 names = [n.strip() for n in
                          ast.literal_eval(dec.args[0]).split(",")]
-                vals = ast.literal_eval(dec.args[1])
+                vals = dec.args[1]
+                if isinstance(vals, ast.Name):
+                    vals = consts[vals.id]
+                vals = ast.literal_eval(vals)
                 if len(names) == 1:
                     vals = [(v,) for v in vals]
                 out = [dict(o, **dict(zip(names, v)))
@@ -90,6 +115,19 @@ def case_id(rel, qual, params):
     return f"{name}::{qual}"
 
 
+def _fixture_params(tree):
+    """(fixture, its ``params`` list) of each fixture with params."""
+    for n in tree.body:
+        if not isinstance(n, ast.FunctionDef):
+            continue
+        for d in n.decorator_list:
+            if isinstance(d, ast.Call) \
+                    and ast.unparse(d.func) == "pytest.fixture":
+                for kw in d.keywords:
+                    if kw.arg == "params":
+                        yield n, ast.literal_eval(kw.value)
+
+
 def fixture_names(rel):
     with open(os.path.join(REPO, rel), encoding="utf-8") as f:
         tree = ast.parse(f.read())
@@ -97,6 +135,12 @@ def fixture_names(rel):
             if isinstance(n, ast.FunctionDef)
             and any(ast.unparse(d).startswith("pytest.fixture")
                     for d in n.decorator_list)}
+
+
+def _conftest(rel):
+    """The conftest.py beside a reference file, if there is one."""
+    conf = os.path.join(os.path.dirname(rel), "conftest.py")
+    return conf if os.path.exists(os.path.join(REPO, conf)) else None
 
 
 class Loader:
@@ -138,6 +182,7 @@ class Loader:
                 ln = f"{indent}{alias} = __ref_module__('tests/causal_core.py')"
             elif self.port:
                 ln = _IMPORT.sub(r"\1antidote_tpu_torch", ln)
+                ln = _API_TPU.sub(r"\1AntidoteGPU as AntidoteTPU", ln)
             src.append(ln)
         name = f"ref_{'port' if self.port else 'jax'}_" \
             + rel[:-3].replace("/", "_")
@@ -150,11 +195,18 @@ class Loader:
         return mod
 
 
-def run_case(mod, rel, qual, params, tmp_path, monkeypatch):
+def run_case(mod, rel, qual, params, tmp_path, monkeypatch, given=None,
+             loader=None):
     """Run one reference case from its executed module: fixtures of
-    the file are called
-    as plain functions and their generators finished after the case."""
+    the file (and, with ``loader``, of the conftest.py beside it, from
+    that loader) are called as plain functions and their generators
+    finished after the case; a fixture with ``params`` gets a
+    ``request`` whose ``param`` is the case's.  ``given`` maps pytest's
+    own fixtures the caller passes on (``capsys``) to their values."""
     fixtures = fixture_names(rel)
+    conf = _conftest(rel) if loader is not None else None
+    conf_fixtures = fixture_names(conf) if conf else set()
+    given = given or {}
     cls_name, _, fn_name = qual.rpartition(".")
     owner = getattr(mod, cls_name)() if cls_name else None
     fn = getattr(owner, fn_name) if owner else getattr(mod, fn_name)
@@ -166,14 +218,20 @@ def run_case(mod, rel, qual, params, tmp_path, monkeypatch):
                 made[param] = tmp_path
             elif param == "monkeypatch":
                 made[param] = monkeypatch
-            elif param in params:
+            elif param in given:
+                made[param] = given[param]
+            elif param in params and param not in fixtures:
                 made[param] = params[param]
             else:
-                if param not in fixtures:
+                if param in fixtures:
+                    fix = getattr(mod, param)
+                elif param in conf_fixtures:
+                    fix = getattr(loader.module(conf), param)
+                else:
                     raise LookupError(f"{rel}: no fixture {param!r}")
-                fix = getattr(mod, param)
-                value = fix(*[get(p) for p in
-                              inspect.signature(fix).parameters])
+                request = types.SimpleNamespace(param=params.get(param))
+                value = fix(*[request if p == "request" else get(p)
+                              for p in inspect.signature(fix).parameters])
                 if inspect.isgenerator(value):
                     teardowns.append(value)
                     value = next(value)
@@ -189,7 +247,7 @@ def run_case(mod, rel, qual, params, tmp_path, monkeypatch):
 
 
 def run_on_both(loaders, rel, qual, params, tmp_path, monkeypatch,
-                jax=True):
+                jax=True, given=None):
     """Run one reference case on the JAX package (unless ``jax`` is
     false: the reference file's own test runs that half in the same
     suite), then on the port, each from its loader's module; returns
@@ -202,7 +260,8 @@ def run_on_both(loaders, rel, qual, params, tmp_path, monkeypatch,
         pkg = ("antidote_tpu", "antidote_tpu_torch")[port]
         rec = Recorder(pkg, monkeypatch)
         run_case(loaders[port].module(rel), rel, qual, params,
-                 tmp_path / ("port" if port else "jax"), monkeypatch)
+                 tmp_path / ("port" if port else "jax"), monkeypatch,
+                 given, loaders[port])
         recs.append(rec)
     return recs
 
@@ -236,8 +295,9 @@ def _entry_type(k):
 
 class Recorder:
     """Patches one package's client API (``api_cls`` and its
-    subclasses' overrides) to record keys and commit VCs, and the
-    endpoint classes (a ``DataCenter`` or a ``NodeServer``) to track
+    subclasses' overrides) to record committed keys and commit VCs, and
+    the endpoint classes (a ``DataCenter``, a ``NodeServer``, and a
+    client API object the case builds over a node of its own) to track
     which are live.  An endpoint's ``close``, or a federated member's
     ``NodeInterDc.close``, after new commits takes a snapshot: every recorded key read at the join of the commits on
     one live endpoint of each DC (within the endpoint's own
@@ -271,17 +331,22 @@ class Recorder:
         rec = self
 
         def keys_of(updates, tx=None):
+            updates = [u for u in updates
+                       if tuple(u[0])[2:] != _PROBE_BUCKET]
             ops = [repr((tuple(u[0]),) + tuple(canon(x) for x in u[1:]))
                    for u in updates]
-            with rec._lock:
-                for u in updates:
-                    rec.keys.setdefault(tuple(u[0]), None)
-                if tx is not None:
-                    rec._writers.setdefault(id(tx), (tx, []))[1].extend(
-                        ops)
-            return ops
+            keys = [tuple(u[0]) for u in updates]
+            if tx is not None:
+                with rec._lock:
+                    entry = rec._writers.setdefault(id(tx), (tx, [], []))
+                    entry[1].extend(ops)
+                    entry[2].extend(keys)
+            return ops, keys
 
-        def commit(vc, tx=None, ops=()):
+        def commit(vc, tx=None, ops=(), keys=()):
+            if threading.current_thread().name.startswith(_BACKGROUND):
+                # a DC's own background writer, not the case's
+                return vc
             with rec._lock:
                 if tx is not None:
                     # a read-only transaction's commit (a static
@@ -290,8 +355,10 @@ class Recorder:
                     entry = rec._writers.pop(id(tx), None)
                     if entry is None:
                         return vc
-                    ops = entry[1]
+                    ops, keys = entry[1], entry[2]
                 if isinstance(vc, rec.vc_cls):
+                    for key in keys:
+                        rec.keys.setdefault(key, None)
                     rec.commits.append(vc)
                     rec.ops.extend(ops)
                     rec.fresh = True
@@ -311,9 +378,9 @@ class Recorder:
                         return f(self, updates, tx, *a, **k)
                 elif name == "update_objects_static":
                     def g(self, clock, updates, *a, **k):
-                        ops = keys_of(updates)
+                        ops, keys = keys_of(updates)
                         return commit(f(self, clock, updates, *a, **k),
-                                      ops=ops)
+                                      ops=ops, keys=keys)
                 else:
                     def g(self, tx, *a, **k):
                         return commit(f(self, tx, *a, **k), tx)
@@ -322,20 +389,30 @@ class Recorder:
             for n, f in orig.items():
                 monkeypatch.setattr(cls, n, wrap(n, f))
 
-        for cls in (dc_cls, srv_cls):
+        def own_node(self, a, k):
+            """A client API object the case built over a node of its
+            own (not a DataCenter, nor the API a NodeServer or a
+            federated member builds over its node)."""
+            return type(self) is api_cls \
+                and k.get("node", a[3] if len(a) > 3 else None) is None
+
+        for cls, endpoint in ((dc_cls, None), (srv_cls, None),
+                              (api_cls, own_node)):
             init, close = cls.__init__, cls.close
 
-            def new_init(self, *a, _init=init, **k):
+            def new_init(self, *a, _init=init, _ep=endpoint, **k):
                 _init(self, *a, **k)
-                with rec._lock:
-                    rec.live.append(self)
+                if _ep is None or _ep(self, a, k):
+                    with rec._lock:
+                        rec.live.append(self)
 
-            def new_close(self, *a, _close=close, **k):
-                if rec.fresh:
-                    rec.snapshot()
-                with rec._lock:
-                    if self in rec.live:
-                        rec.live.remove(self)
+            def new_close(self, *a, _close=close, _ep=endpoint, **k):
+                if _ep is None or self in rec.live:
+                    if rec.fresh:
+                        rec.snapshot()
+                    with rec._lock:
+                        if self in rec.live:
+                            rec.live.remove(self)
                 return _close(self, *a, **k)
 
             monkeypatch.setattr(cls, "__init__", new_init)
@@ -377,6 +454,7 @@ class Recorder:
         out = []
         for dc, (api, node) in sorted(by_dc.items()):
             try:
+                wait_covered(node, target)
                 vals, _ = api.read_objects_static(target, keys)
                 got = tuple((repr(k), canon(v, k[1]))
                             for k, v in zip(keys, vals))
@@ -384,6 +462,22 @@ class Recorder:
                 got = f"{type(e).__name__}: {e}"
             out.append((dc, got))
         self.finals = tuple(out)
+
+
+def wait_covered(node, target):
+    """Under GentleRain (``txn_prot="gr"``) a static read at a client
+    clock waits only for its own DC's entry and reads at the scalar GST
+    (reference gr_snapshot_obtain), so a final read must first wait,
+    within the node's ``clock_wait_timeout_s``, until the DC's stable
+    snapshot covers ``target``: then the GST does.  Clock-SI reads wait
+    for every entry themselves."""
+    if node.config.txn_prot != "gr":
+        return
+    deadline = time.monotonic() + node.config.clock_wait_timeout_s
+    while not type(target)(node.stable_vc()).ge(target):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"stable snapshot never covered {target}")
+        time.sleep(0.005)
 
 
 def _causal_order(rec):
