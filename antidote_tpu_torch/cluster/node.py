@@ -28,11 +28,9 @@ takes ``device`` (None: the card, or raise, through ``resolve_device``;
 ``"cpu"`` runs the member's planes on the CPU) and passes it through
 ``ClusterNode`` to ``Node``, so every partition this member owns keeps
 its planes there; the client API it assembles is an ``AntidoteGPU``;
-the stable tracker's ring placement counts CUDA devices, so on one card
-(or on the CPU) it stays ``None``, and with more cards the port's
-``make_stable_tracker`` raises ``NotImplementedError`` where the
-reference would build the device tracker (ROADMAP §1 item 5); the
-default stable source is ``txn.node.stable_time`` (exclusive of the
+the stable tracker's ring placement spreads over the process's mesh
+devices of the member's device kind (``runtime.mesh_devices``), not jax
+devices; the default stable source is ``txn.node.stable_time`` (exclusive of the
 partition's pending prepares) where the JAX module uses
 ``min_prepared``.  Everything else is the JAX module's code.
 """
@@ -44,8 +42,6 @@ import os
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
-
-import torch
 
 from antidote_tpu_torch import resolve_device
 from antidote_tpu_torch.clocks import VC, vc_min
@@ -567,17 +563,18 @@ class NodeServer:
         # mesh spans the hosts and the collective spans the DC.
         from antidote_tpu_torch.meta.device_stable import make_stable_tracker
 
+        from antidote_tpu_torch.runtime import mesh_devices
+
         placement = None
-        if node.config.device_placement == "ring" \
-                and self.device.type == "cuda":
-            n_devs = torch.cuda.device_count()
+        if node.config.device_placement == "ring":
+            n_devs = len(mesh_devices(self.device))
             if n_devs > 1:
                 placement = [p % n_devs for p in local_idx] + [
                     p % n_devs for p in sorted(self._stable_pins)]
         tracker = make_stable_tracker(
             node.config, dc_id,
             len(local_idx) + len(self._stable_pins),
-            placement=placement)
+            placement=placement, device=self.device)
 
         def _default_source(p):
             pm = node.partitions[p]

@@ -17,8 +17,9 @@ Port of antidote_tpu/interdc/dc.py.  What changed: ``DataCenter`` is
 an ``AntidoteGPU`` and takes ``device`` (None: the card, or raise,
 through ``resolve_device``; ``"cpu"`` runs the node's planes and every
 partition's dependency gate on the CPU), which it passes to its
-``Node`` and to each gate it builds, so a DC's gates run where its
-planes do; a partition's own-DC stable entry is ``txn.node.stable_time``
+``Node``, to each gate it builds and to its stable tracker's factory, so
+a DC's gates run where its planes do and a ring-placed DC folds its
+stable time over the mesh devices of that kind; a partition's own-DC stable entry is ``txn.node.stable_time``
 (exclusive of its pending prepares) where the JAX module uses
 ``min_prepared``; the widen backfill of ``set_interest`` enqueues into
 a gate under ``_rx_lock``, as every delivery does (the JAX module
@@ -86,7 +87,8 @@ class DataCenter(AntidoteGPU):
             recover=cfg.recover_meta_data_on_start)
         # ring placement over a real mesh: the stable fold is a device
         # collective, host fold as oracle (meta/device_stable.py)
-        self.stable = make_stable_tracker(cfg, dc_id, cfg.n_partitions)
+        self.stable = make_stable_tracker(cfg, dc_id, cfg.n_partitions,
+                                          device=self.device)
         #: drop inbound heartbeats (reference inter_dc_manager:drop_ping,
         #: src/inter_dc_manager.erl:254-260 — lets tests age the GST)
         self.drop_ping = False
@@ -200,7 +202,7 @@ class DataCenter(AntidoteGPU):
             self.node.repartition(new_n)
             self.stable = make_stable_tracker(
                 self.node.config, self.node.dc_id,
-                self.node.config.n_partitions)
+                self.node.config.n_partitions, device=self.device)
             # stability is permanent: the resized tracker keeps the old
             # published floor (same rule as the restart restore above)
             self.stable.seed_floor(floor)

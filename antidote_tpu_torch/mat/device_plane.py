@@ -35,6 +35,23 @@ capture returns only copies the fold's result to the host (one wait for
 the card) and builds the host CRDT state.  Uploads go through pinned
 memory and never wait; a flush waits once a chunk, to read its
 overflow.
+
+A plane may instead be sharded over a mesh (``DevicePlane.place_sharded``,
+mat/sharded.py): its ``st`` is then a ``sharded.ShardedState``, one
+state a shard, and every store call on it goes through the plane's
+dispatcher (``_st_fold``, ``_st_purge``, ``_st_regrade``,
+``_st_read_keys``, the flush's append), which runs it on every shard
+under ``runtime.COLLECTIVE_LOCK``; a read capture enqueues every shard's
+fold and the psum under that lock, and a regrade or a host scan works
+on a gathered copy (a regrade splits its result again).
+
+One difference from the JAX plane, in the unlogged emergency fold
+(``flush``): the port folds the ring at the join of every staged commit
+VC (``_ring_vc_bound``, the base it raises to) and folds once more at
+that horizon after its retry lands.  The JAX plane folds at the
+infinite horizon, which raises the device base VC to infinity, and then
+appends the retried rows under the raised base: reads skip them, and
+every op appended later that no GC has folded yet.
 """
 
 from __future__ import annotations
@@ -51,7 +68,7 @@ import torch
 
 from antidote_tpu_torch import resolve_device, stats
 from antidote_tpu_torch.clocks import VC, ClockDomain
-from antidote_tpu_torch.mat import ingest, rga_store, store
+from antidote_tpu_torch.mat import ingest, rga_store, sharded, store
 from antidote_tpu_torch.mat.materializer import Payload
 from antidote_tpu_torch.obs import prof
 from antidote_tpu_torch.obs.events import recorder
@@ -141,9 +158,8 @@ def collective_guard(dev):
     launches a multi-device program — else a no-op context, so the
     single-device paths keep their lock-free read concurrency.  ``dev``
     is the ``closure.device`` discriminator the fused-read callers group
-    by.  No plane of the port is sharded over a mesh yet (ROADMAP §1
-    item 5): every capture publishes a ``torch.device``, so on one card
-    this is always the no-op."""
+    by: a plane sharded over a mesh publishes its ``runtime.Mesh``
+    there, a plane on one device its ``torch.device``."""
     if isinstance(dev, torch.device):
         return contextlib.nullcontext()
     return COLLECTIVE_LOCK
@@ -254,6 +270,15 @@ class _PlaneBase:
         self.st = self._init_state(key_capacity)
         #: set on the first staged op for this plane (kick_warm)
         self._warm_kicked = False
+        #: the mesh this plane's state is sharded over (set by
+        #: DevicePlane.place_sharded; None = one device).  While set,
+        #: ``st`` is a sharded.ShardedState and every dispatch on it
+        #: runs on every shard under runtime.COLLECTIVE_LOCK
+        #: (_collective_cm)
+        self._mesh = None
+        #: per-shard residency router (mat/sharded.ShardRouter), wired
+        #: alongside the mesh
+        self._router = None
 
     # -- subclass hooks -----------------------------------------------------
 
@@ -287,9 +312,68 @@ class _PlaneBase:
         """Nothing to do, for the reason :meth:`warm_appends` gives."""
 
     def _post_grow(self) -> None:
-        """After any capacity growth: nothing to do on one device (the
-        grow already rebuilt the state on the plane's device, and there
-        is no program to warm)."""
+        """After any capacity growth: nothing to do (the grow already
+        rebuilt the state on the plane's device, or split it over the
+        mesh again, and there is no program to warm)."""
+
+    # -- the state's dispatcher: every store call on ``st`` -----------------
+
+    def _collective_cm(self):
+        """COLLECTIVE_LOCK while sharded over a mesh (every dispatch on
+        the state runs on every shard and meets on the mesh's first
+        device — runtime.py's invariant), a no-op context on one
+        device."""
+        if self._mesh is not None:
+            return COLLECTIVE_LOCK
+        return contextlib.nullcontext()
+
+    def _reshard(self) -> None:
+        """Split a whole state over the mesh per the rule table
+        (mat/sharded.py), where a regrade left one; idempotent."""
+        if self._mesh is not None:
+            with COLLECTIVE_LOCK:
+                self.st = sharded.place_state(self._mesh, self.st)
+
+    def _st_fold(self, fn, gst: torch.Tensor) -> None:
+        """``st := fn(st, gst)``, a GC fold, on every shard."""
+        with self._collective_cm():
+            self.st = (fn(self.st, gst) if self._mesh is None
+                       else sharded.shards_fold(fn, self.st, gst))
+
+    def _st_purge(self, fn, idx: int) -> None:
+        """``st := fn(st, [idx])``, a purge, on the key's shard."""
+        with self._collective_cm():
+            key = self._idx_tensor(idx)
+            self.st = (fn(self.st, key) if self._mesh is None
+                       else sharded.shards_purge(fn, self.st, key))
+
+    def _st_regrade(self, fn, *args, **kw) -> None:
+        """``st := fn(st, ...)`` for a host-side regrade (grow, lww
+        retie/reval): a sharded state is gathered whole, regraded and
+        split again."""
+        if self._mesh is not None:
+            with COLLECTIVE_LOCK:
+                self.st = sharded.gather_state(self.st)
+        self.st = fn(self.st, *args, **kw)
+        self._reshard()
+
+    def _st_read_keys(self, fn, st, pad: torch.Tensor, rv):
+        """``fn(st, pad, rv)``, a batched point read, enqueued now: on a
+        mesh every shard folds its own keys and a psum assembles the
+        result on the mesh's first device."""
+        if self._mesh is None:
+            return fn(st, pad, rv)
+        with COLLECTIVE_LOCK:
+            return sharded.shards_read_keys(fn, st, pad, rv)
+
+    def _st_host(self, *names: str) -> list:
+        """numpy copies of the named state fields (the whole state's,
+        gathered from its shards on a mesh), one wait."""
+        st = self.st
+        if self._mesh is not None:
+            with COLLECTIVE_LOCK:
+                st = sharded.gather_state(st)
+        return _host([getattr(st, n) for n in names])
 
     def _packed_perm(self):
         """Ops-layout permutation for this plane's packed flushes, or
@@ -308,20 +392,29 @@ class _PlaneBase:
         if n == 0:
             return np.zeros(0, dtype=bool)
         dev = self.device
+        mesh = self._mesh
         perm = self._packed_perm()
         if self._ingest.enabled and perm is not None:
             packed = ingest.pack_rows(rows, self.capacity,
                                       self.domain.d, self._row_cols,
                                       perm)
-            self.st, overflow = ingest.packed_append(
-                self.st, _upload(packed, dev))
-            ingest.note_dispatch(n, packed.nbytes)
+            with self._collective_cm():
+                self.st, overflow = (
+                    ingest.packed_append(self.st, _upload(packed, dev))
+                    if mesh is None else sharded.shards_append_packed(
+                        self.st, _upload(packed, dev)))
+            ingest.note_dispatch(
+                n, packed.nbytes,
+                replicas=1 if mesh is None else mesh.shape["part"])
             return _host([overflow[:n]])[0]
         ki, lo, arrays = _pack_rows(rows, self.capacity, self.domain.d,
                                     self._row_cols)
-        self.st, overflow = type(self)._append_fn(
-            self.st, _upload(ki, dev), _upload(lo, dev),
-            *(_upload(a, dev) for a in arrays))
+        cols = (_upload(a, dev) for a in (ki, lo, *arrays))
+        with self._collective_cm():
+            self.st, overflow = (
+                type(self)._append_fn(self.st, *cols) if mesh is None
+                else sharded.shards_append(type(self)._append_fn,
+                                           self.st, *cols))
         return _host([overflow[:n]])[0]
 
     def _purge_idx(self, idx: int) -> None:
@@ -484,7 +577,10 @@ class _PlaneBase:
             return post(tuple(_host(outs)))
 
         run.split = (outs, post)
-        run.device = outs[0].device
+        # the mesh IS the fusing discriminator for a sharded plane:
+        # every sharded plane's results meet on the mesh's first device,
+        # and collective_guard takes COLLECTIVE_LOCK for it
+        run.device = outs[0].device if self._mesh is None else self._mesh
         return run
 
     def read_many(self, keys: list, read_vc: Optional[VC]) -> dict:
@@ -548,6 +644,11 @@ class _PlaneBase:
         self.pending_keys.discard(key)
         self.rev_keys[idx] = _Evicted
         self._purge_idx(idx)
+        if self._router is not None:
+            # the owning shard's lanes just overflowed (or the key was
+            # displaced): charge that shard's economy so it stops
+            # admitting new device residents until the next fold
+            self._router.note_evict(idx, self.capacity)
         log.debug("device plane: evicted %r (%s)", key, self.type_name)
         recorder.record("device", "evict", plane=self.type_name,
                         key=key)
@@ -673,18 +774,27 @@ class _PlaneBase:
                     # log exists to replay it from — so fold the WHOLE
                     # ring into the base to free lanes and retry once
                     # more.  Sound: every ring op is published, so the
-                    # host-side join of staged commit VCs bounds them;
-                    # reads below the raised base take the log-replay
-                    # path, which unlogged mode already degrades.
-                    inf = np.full(self.domain.d, _VC_INF,
-                                  dtype=np.int64)
-                    self._run_device_gc(inf)
+                    # host-side join of staged commit VCs bounds them,
+                    # and the fold at that bound takes them all; reads
+                    # below the raised base take the log-replay path,
+                    # which unlogged mode already degrades.
+                    pairs = self._ss_pairs(self._ring_vc_bound)
+                    horizon = (np.full(self.domain.d, _VC_INF,
+                                       dtype=np.int64) if pairs is None
+                               else self._dense_vc(pairs))
+                    self._run_device_gc(horizon)
                     self._base_vc = self._base_vc.join(
                         self._ring_vc_bound)
                     self._has_base = True
                     self._ops_since_gc = 0
                     retry2 = [r for r, o in zip(retry, overflow2) if o]
                     overflow3 = self._append_rows(retry2)
+                    # the retried rows' commit VCs are under the raised
+                    # base (_note_staged_vc joined them into the bound),
+                    # so they join the base too, as on the GST path
+                    # above: left in the ring, a read at or above the
+                    # base would skip them
+                    self._run_device_gc(horizon)
                     if overflow3.any():
                         # structural caps (slots / DC columns): the
                         # rows are unrepresentable and, unlogged,
@@ -719,6 +829,10 @@ class _PlaneBase:
         with prof.annotate(f"device_gc:{self.type_name}"), \
                 tracer.span(f"device_gc:{self.type_name}", "device"):
             self._run_device_gc(self._dense_vc(pairs))
+        if self._router is not None:
+            # a fold freed ring lanes on every shard — reset the
+            # overflow economy so shards re-admit device residents
+            self._router.note_fold()
         recorder.record("device", "gc", plane=self.type_name,
                         horizon=dict(stable_vc))
         self._base_vc = self._base_vc.join(stable_vc)
@@ -787,15 +901,15 @@ class OrsetPlane(_PlaneBase):
             dtype=torch.int64, device=self.device)
 
     def _grow_dcs(self, new_d):
-        self.st = store.orset_grow(self.st, n_dcs=new_d)
+        self._st_regrade(store.orset_grow, n_dcs=new_d)
 
     def _grow_keys(self, new_k):
-        self.st = store.orset_grow(self.st, n_keys=new_k)
+        self._st_regrade(store.orset_grow, n_keys=new_k)
 
     def _grow_slots(self, new_e):
         self.flush("grow")
         self.n_slots = new_e
-        self.st = store.orset_grow(self.st, n_slots=new_e)
+        self._st_regrade(store.orset_grow, n_slots=new_e)
 
     def _key_idx(self, key):
         idx = super()._key_idx(key)
@@ -859,12 +973,12 @@ class OrsetPlane(_PlaneBase):
                 for elem, dots in state.items() for dot in dots]
 
     def _purge_idx(self, idx):
-        self.st = store.orset_purge_keys(self.st, self._idx_tensor(idx))
+        self._st_purge(store.orset_purge_keys, idx)
         self.elem_index[idx] = {}
         self.rev_elems[idx] = []
 
     def _device_gc(self, gst):
-        self.st = store.orset_gc(self.st, gst)
+        self._st_fold(store.orset_gc, gst)
 
     def _state_of(self, dots_row, elems, actors):
         """Host state of one key from its folded [E, D] dot rows."""
@@ -889,7 +1003,8 @@ class OrsetPlane(_PlaneBase):
             return {k: self._state_of(dots[i], elem_lists[i], actors)
                     for i, k in enumerate(owned)}
 
-        return (type(self)._read_keys(st, pad, rv),), post
+        return (self._st_read_keys(type(self)._read_keys, st, pad,
+                                   rv),), post
 
 
 class CounterPlane(_PlaneBase):
@@ -907,10 +1022,10 @@ class CounterPlane(_PlaneBase):
             device=self.device)
 
     def _grow_dcs(self, new_d):
-        self.st = store.counter_grow(self.st, n_dcs=new_d)
+        self._st_regrade(store.counter_grow, n_dcs=new_d)
 
     def _grow_keys(self, new_k):
-        self.st = store.counter_grow(self.st, n_keys=new_k)
+        self._st_regrade(store.counter_grow, n_keys=new_k)
 
     def stage(self, key, payload: Payload) -> None:
         idx = self._key_idx(key)
@@ -928,17 +1043,18 @@ class CounterPlane(_PlaneBase):
         return [int(state)] if state else []
 
     def _purge_idx(self, idx):
-        self.st = store.counter_purge_keys(self.st, self._idx_tensor(idx))
+        self._st_purge(store.counter_purge_keys, idx)
 
     def _device_gc(self, gst):
-        self.st = store.counter_gc(self.st, gst)
+        self._st_fold(store.counter_gc, gst)
 
     def _many_split(self, st, owned, idxs, pad, rv):
         def post(outs):
             vals = outs[0].tolist()
             return {k: int(vals[i]) for i, k in enumerate(owned)}
 
-        return (store.counter_read_keys(st, pad, rv),), post
+        return (self._st_read_keys(store.counter_read_keys, st, pad,
+                                   rv),), post
 
 
 class MvregPlane(OrsetPlane):
@@ -986,7 +1102,7 @@ class MvregPlane(OrsetPlane):
         return [("asgn", v, dot, ()) for dot, v in state]
 
     def _device_gc(self, gst):
-        self.st = store.mvreg_gc(self.st, gst)
+        self._st_fold(store.mvreg_gc, gst)
 
     def _state_of(self, dots_row, vals, actors):
         pairs = set()
@@ -1074,15 +1190,15 @@ class RwsetPlane(OrsetPlane):
             dtype=torch.int64, device=self.device)
 
     def _grow_dcs(self, new_d):
-        self.st = store.rwset_grow(self.st, n_dcs=new_d)
+        self._st_regrade(store.rwset_grow, n_dcs=new_d)
 
     def _grow_keys(self, new_k):
-        self.st = store.rwset_grow(self.st, n_keys=new_k)
+        self._st_regrade(store.rwset_grow, n_keys=new_k)
 
     def _grow_slots(self, new_e):
         self.flush("grow")
         self.n_slots = new_e
-        self.st = store.rwset_grow(self.st, n_slots=new_e)
+        self._st_regrade(store.rwset_grow, n_slots=new_e)
 
     def stage(self, key, payload: Payload) -> None:
         idx = self._key_idx(key)
@@ -1123,12 +1239,12 @@ class RwsetPlane(OrsetPlane):
         return None
 
     def _purge_idx(self, idx):
-        self.st = store.rwset_purge_keys(self.st, self._idx_tensor(idx))
+        self._st_purge(store.rwset_purge_keys, idx)
         self.elem_index[idx] = {}
         self.rev_elems[idx] = []
 
     def _device_gc(self, gst):
-        self.st = store.rwset_gc(self.st, gst)
+        self._st_fold(store.rwset_gc, gst)
 
     def _rw_state_of(self, adds, rmvs, elems, actors):
         state = {}
@@ -1152,7 +1268,8 @@ class RwsetPlane(OrsetPlane):
                                          actors)
                     for i, k in enumerate(owned)}
 
-        return tuple(store.rwset_read_keys(st, pad, rv)), post
+        return tuple(self._st_read_keys(store.rwset_read_keys, st, pad,
+                                        rv)), post
 
 
 class FlagDwPlane(RwsetPlane):
@@ -1220,15 +1337,15 @@ class SetGoPlane(OrsetPlane):
             dtype=torch.int64, device=self.device)
 
     def _grow_dcs(self, new_d):
-        self.st = store.setgo_grow(self.st, n_dcs=new_d)
+        self._st_regrade(store.setgo_grow, n_dcs=new_d)
 
     def _grow_keys(self, new_k):
-        self.st = store.setgo_grow(self.st, n_keys=new_k)
+        self._st_regrade(store.setgo_grow, n_keys=new_k)
 
     def _grow_slots(self, new_e):
         self.flush("grow")
         self.n_slots = new_e
-        self.st = store.setgo_grow(self.st, n_slots=new_e)
+        self._st_regrade(store.setgo_grow, n_slots=new_e)
 
     def stage(self, key, payload: Payload) -> None:
         idx = self._key_idx(key)
@@ -1253,12 +1370,12 @@ class SetGoPlane(OrsetPlane):
         return [(e,) for e in state]
 
     def _purge_idx(self, idx):
-        self.st = store.setgo_purge_keys(self.st, self._idx_tensor(idx))
+        self._st_purge(store.setgo_purge_keys, idx)
         self.elem_index[idx] = {}
         self.rev_elems[idx] = []
 
     def _device_gc(self, gst):
-        self.st = store.setgo_gc(self.st, gst)
+        self._st_fold(store.setgo_gc, gst)
 
     def _state_of(self, present_row, elems, actors):
         return frozenset(e for slot, e in enumerate(list(elems))
@@ -1304,10 +1421,10 @@ class LwwPlane(_PlaneBase):
             device=self.device)
 
     def _grow_dcs(self, new_d):
-        self.st = store.lww_grow(self.st, n_dcs=new_d)
+        self._st_regrade(store.lww_grow, n_dcs=new_d)
 
     def _grow_keys(self, new_k):
-        self.st = store.lww_grow(self.st, n_keys=new_k)
+        self._st_regrade(store.lww_grow, n_keys=new_k)
 
     def _tie(self, actor: str, seq: int) -> Optional[int]:
         if seq > _TIE_SEQ_MAX:
@@ -1320,7 +1437,7 @@ class LwwPlane(_PlaneBase):
                 [new_sorted.index(a) for a in self.actors_sorted],
                 dtype=np.int64)
             if len(remap):
-                self.st = store.lww_retie(self.st, remap, _TIE_SHIFT)
+                self._st_regrade(store.lww_retie, remap, _TIE_SHIFT)
             self.actors_sorted = new_sorted
             self._rank = {a: i for i, a in enumerate(new_sorted)}
             rank = self._rank[actor]
@@ -1351,8 +1468,8 @@ class LwwPlane(_PlaneBase):
         (store.lww_reval).  Keeps register-heavy workloads from leaking
         one value object per assign forever."""
         self.flush("grow")
-        ops_val, valid, bval = _host(
-            [self.st.ops[:, store._LVAL], self.st.valid, self.st.base_val])
+        ops, valid, bval = self._st_host("ops", "valid", "base_val")
+        ops_val = ops[:, store._LVAL]
         live = set(np.unique(ops_val[valid]).tolist())
         live.update(np.unique(bval[bval >= 0]).tolist())
         remap = np.full(len(self.rev_vals), -1, dtype=np.int64)
@@ -1360,7 +1477,7 @@ class LwwPlane(_PlaneBase):
         for old in sorted(live):
             remap[old] = len(new_vals)
             new_vals.append(self.rev_vals[old])
-        self.st = store.lww_reval(self.st, remap)
+        self._st_regrade(store.lww_reval, remap)
         self.rev_vals = new_vals
         self.val_index = {v: i for i, v in enumerate(new_vals)}
         log.debug("lww plane: value directory compacted to %d entries",
@@ -1389,10 +1506,10 @@ class LwwPlane(_PlaneBase):
         return [] if not tie and v is None else [(ts, tie, v)]
 
     def _purge_idx(self, idx):
-        self.st = store.lww_purge_keys(self.st, self._idx_tensor(idx))
+        self._st_purge(store.lww_purge_keys, idx)
 
     def _device_gc(self, gst):
-        self.st = store.lww_gc(self.st, gst)
+        self._st_fold(store.lww_gc, gst)
 
     def _many_split(self, st, owned, idxs, pad, rv):
         # actors_sorted and rev_vals are REPLACED wholesale on a rank
@@ -1415,7 +1532,8 @@ class LwwPlane(_PlaneBase):
                               vals[int(val[i])])
             return out
 
-        return tuple(store.lww_read_keys(st, pad, rv)), post
+        return tuple(self._st_read_keys(store.lww_read_keys, st, pad,
+                                        rv)), post
 
 
 #: bottom (empty) nested states as the planes reconstruct them — used by
@@ -2108,8 +2226,15 @@ class DevicePlane:
             max_dcs = config.device_max_dcs
             max_slots = config.device_max_slots
             ingest_settings = ingest.ingest_from_config(config)
-        #: the device every plane's state lives on; see place_on
+        #: the device every plane's state lives on; see place_on (a
+        #: sharded plane's: the mesh's first device, where its results
+        #: meet)
         self.device = dev = resolve_device(device)
+        #: the mesh every plane's state is sharded over (None = one
+        #: device); see place_sharded.  Mutually exclusive with
+        #: place_on — a plane is pinned to ONE device or sharded over
+        #: the mesh, never both
+        self.mesh = None
         ing = ingest_settings or ingest.ingest_from_config(None)
         slotted = {"set_aw": OrsetPlane, "register_mv": MvregPlane,
                    "set_rw": RwsetPlane, "set_go": SetGoPlane}
@@ -2212,6 +2337,80 @@ class DevicePlane:
                 _move(plane)
         self.device = device
 
+    def place_sharded(self, mesh) -> None:
+        """Shard every plane's state over ``mesh`` (a runtime.Mesh) per
+        the named partition rules (mat/sharded.py PARTITION_RULES) — the
+        pod-scale materializer: the key axis splits across the mesh's
+        devices, the clock row replicates, and every later dispatch on
+        the state runs on every shard under runtime.COLLECTIVE_LOCK
+        (_PlaneBase._collective_cm).  Each plane also gets a per-shard
+        residency router (ShardRouter): evictions charge only the
+        OWNING shard's overflow economy, so one hot shard spilling
+        cannot stop the other shards' keys from staying
+        device-resident.  RGA documents (a dict of per-document trees)
+        stay whole on the plane's device, as in the JAX package."""
+        n_shards = int(mesh.shape["part"])
+        root = mesh.devices[0]
+
+        def _wire(p):
+            p._mesh = mesh
+            p._router = sharded.ShardRouter(n_shards)
+            p.device = root
+            p._inf_rv = None
+            with COLLECTIVE_LOCK:
+                p.st = sharded.place_state(mesh, p.st)
+
+        for plane in self.planes.values():
+            if isinstance(plane, MapPlane):
+                orig = plane._make_sub
+
+                def sharded_make(tn, _orig=orig):
+                    sub = _orig(tn)
+                    _wire(sub)
+                    return sub
+
+                plane._make_sub = sharded_make
+                for s in plane._all_planes():
+                    _wire(s)
+            elif not isinstance(plane, RgaPlane):
+                _wire(plane)
+        self.mesh = mesh
+
+    def refresh_shard_stats(self) -> None:
+        """Publish the SHARD_* residency families (stats.py): per-shard
+        device-resident key counts across all sharded planes, plus the
+        device-resident percentage the config18 bench gates on
+        (resident keys vs resident + host-evicted)."""
+        if self.mesh is None:
+            return
+        n_shards = int(self.mesh.shape["part"])
+        per_shard = [0] * n_shards
+        resident = 0
+
+        def _count(p):
+            nonlocal resident
+            r = p._router
+            if r is None:
+                return
+            for idx, k in enumerate(p.rev_keys):
+                if k is _Evicted:
+                    continue
+                per_shard[r.shard_of(idx, p.capacity)] += 1
+                resident += 1
+
+        for plane in self.planes.values():
+            if isinstance(plane, MapPlane):
+                for s in plane._all_planes():
+                    _count(s)
+            elif not isinstance(plane, RgaPlane):
+                _count(plane)
+        for s, n in enumerate(per_shard):
+            stats.registry.shard_resident_keys.set(n, shard=str(s))
+        total = resident + len(self.host_only)
+        if total:
+            stats.registry.shard_device_resident_pct.set(
+                100.0 * resident / total)
+
     def set_evict_handler(self, fn: Callable[..., None],
                           export_state: bool = False) -> None:
         """Wire the eviction migration.  ``export_state=True`` marks a
@@ -2241,7 +2440,17 @@ class DevicePlane:
                     p._presence.evict_export = export_state
 
     def accepts(self, type_name: str, key) -> bool:
-        return type_name in self.planes and key not in self.host_only
+        if type_name not in self.planes or key in self.host_only:
+            return False
+        p = self.planes[type_name]
+        r = getattr(p, "_router", None)
+        if r is not None and key not in p.key_index:
+            # per-shard adaptive admission: a NEW key would land at
+            # the next directory index — if that index's owning shard
+            # overflowed since the last fold, route the key host-side
+            # instead of feeding a ring that will evict it right back
+            return r.admits(len(p.rev_keys), p.capacity)
+        return True
 
     def owns(self, type_name: str, key) -> bool:
         p = self.planes.get(type_name)
@@ -2379,6 +2588,7 @@ class DevicePlane:
         with tracer.span("device_gc_all", "device"):
             for p in self.planes.values():
                 p.gc(stable_vc)
+        self.refresh_shard_stats()
 
     def flush(self) -> None:
         with tracer.span("device_flush_all", "device"):

@@ -1,7 +1,8 @@
 """Clock / metadata plane (counterpart of antidote_tpu/meta/): the host
-GST fold and the metadata sender, copied verbatim.  The device tracker
-(``meta/device_stable.py``, a cross-chip ``pmin``) comes with the mesh,
-ROADMAP §1 item 5; on one card the live system folds on the host."""
+GST fold and the metadata sender, copied verbatim, and the device
+tracker (``meta/device_stable.py``: the GST as each mesh device's own
+min followed by the gather-min), which a ring-placed node builds over
+two or more mesh devices."""
 
 from antidote_tpu_torch.meta.gossip import StableTimeTracker  # noqa: F401
 from antidote_tpu_torch.meta.stable_store import StableMetaData  # noqa: F401

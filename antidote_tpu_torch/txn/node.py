@@ -11,12 +11,12 @@ integer keys map by modulo, everything else by hash.
 Port of antidote_tpu/txn/node.py.  What changed: ``Node`` takes
 ``device`` (None: the card, or raise, through ``resolve_device``;
 ``"cpu"`` runs every plane on the CPU) and builds every partition's
-``DevicePlane`` there; ring placement and the device stable tracker
-count CUDA devices, not jax devices; the device stable tracker
-(``meta/device_stable.py``) and the pod-sharded plane
-(``mat/sharded.py``'s mesh) are not ported yet (ROADMAP §1 item 5), so
-the configurations that would build them on several cards raise
-``NotImplementedError`` instead; a partition's own-DC stable
+``DevicePlane`` there; ring placement, the pod-sharded plane
+(``mat/sharded.py``) and the device stable tracker
+(``meta/device_stable.py``) spread over the process's mesh devices
+(``runtime.mesh_devices`` of the node's device kind: every CUDA card, or
+the list ``runtime.set_mesh_devices`` set), not jax devices; a
+partition's own-DC stable
 contribution is :func:`stable_time`, one microsecond below its
 ``min_prepared`` (the JAX module's sources use ``min_prepared`` itself).
 Everything else is the JAX module's code.
@@ -29,8 +29,6 @@ import threading
 import time
 import zlib
 from typing import Any, Callable, List, Optional, Tuple
-
-import torch
 
 from antidote_tpu_torch import resolve_device
 from antidote_tpu_torch.clocks import VC
@@ -395,23 +393,36 @@ class Node:
     def _install_device_stable(self) -> None:
         """Serve this node's OWN stable fold from the device mesh when
         the data plane is ring-placed over multiple chips: each local
-        partition's row (own min-prepared — the single-node default
-        provider's quantity) lives on the partition's chip and the GST
-        is a cross-chip pmin (meta/device_stable.py).  Skipped when a
+        partition's row (its ``stable_time``, one below its own
+        min-prepared) lives on the partition's mesh device and the GST
+        is a cross-device pmin (meta/device_stable.py).  Skipped when a
         higher layer will install its own provider anyway for slices
-        this process doesn't own (ClusterNode), or with <2 devices."""
+        this process doesn't own (ClusterNode), or with fewer than two
+        mesh devices."""
         if not (self.config.device_store
                 and self.config.device_placement == "ring"):
             return
         if any(not isinstance(pm, PartitionManager)
                for pm in self.partitions):
             return  # cluster member: NodeServer wires the plane
-        if self.device.type != "cuda" or torch.cuda.device_count() < 2:
+        from antidote_tpu_torch.runtime import mesh_devices
+
+        devs = mesh_devices(self.device)
+        if len(devs) < 2:
             return
-        raise NotImplementedError(
-            "device_placement='ring' over several cards serves the "
-            "stable fold from the devices (meta/device_stable.py), "
-            "which the port has not yet (ROADMAP §1 item 5)")
+        from antidote_tpu_torch.meta.device_stable import (
+            DeviceStableTimeTracker,
+        )
+
+        trk = DeviceStableTimeTracker(
+            self.dc_id, self.config.n_partitions, devs)
+        dc_id = self.dc_id
+        trk.sources = [
+            (lambda _pm=pm: VC({dc_id: stable_time(_pm)}))
+            for pm in self.partitions
+        ]
+        self.stable_tracker = trk
+        self.stable_vc_provider = trk.get_stable_snapshot
 
     # ------------------------------------------------------------ elasticity
 
@@ -890,15 +901,23 @@ class Node:
             from antidote_tpu_torch.mat.sharded import sharded_from_config
 
             plane = DevicePlane(config=self.config, device=self.device)
-            # the one factory resolves the mat_sharded knob; it raises
-            # where the reference would shard the plane over a mesh
-            # (ROADMAP §1 item 5), so every plane here is on one device
-            sharded_from_config(self.config)
-            if self.config.device_placement == "ring" \
-                    and self.device.type == "cuda":
-                n_cards = torch.cuda.device_count()
-                if n_cards > 1:
-                    plane.place_on(torch.device("cuda", p % n_cards))
+            shard = sharded_from_config(self.config, self.device)
+            if shard.enabled:
+                # pod-scale materializer: the live keyspace shards
+                # ACROSS the mesh's devices — every partition's plane
+                # states split on the key axis per the named partition
+                # rules, with per-shard adaptive residency.  Mutually
+                # exclusive with ring placement (a plane is sharded
+                # over the mesh or pinned to one device, never both);
+                # the one factory resolves the knob, so mat_sharded=
+                # False routes the one-device path bit-for-bit.
+                plane.place_sharded(shard.mesh)
+            elif self.config.device_placement == "ring":
+                from antidote_tpu_torch.runtime import mesh_devices
+
+                devs = mesh_devices(self.device)
+                if len(devs) > 1:
+                    plane.place_on(devs[p % len(devs)])
         pm = PartitionManager(p, self.dc_id, log, self.clock,
                               device_plane=plane)
         # cross-transaction read coalescing (mat/serve.py): the ONE

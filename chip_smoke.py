@@ -2,11 +2,13 @@
 """Smoke run of the PyTorch/CUDA port (antidote_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--gate-only | --txn-only | --multidc-only |
-                           --cluster-only | --pb-only] [--parent DIR]
+                           --cluster-only | --pb-only | --mesh-only]
+                          [--parent DIR]
 
 ``--gate-only`` runs phases 1, 2 and 10 alone, ``--txn-only`` phases 1,
 2 and 11, ``--multidc-only`` phases 1, 2 and 12, ``--cluster-only``
-phases 1, 2 and 13, ``--pb-only`` phases 1, 2 and 14; ``--parent DIR`` imports
+phases 1, 2 and 13, ``--pb-only`` phases 1, 2 and 14, ``--mesh-only``
+phases 1, 2 and 15; ``--parent DIR`` imports
 the fixpoint wrapper (``ring_fixpoint``) of another checkout at DIR, an
 earlier commit, from its own package and sources, and phase 10 times
 that kernel in turns with this one on the same inputs.  Run from the
@@ -252,10 +254,33 @@ Phases, each of which fails the run on any error or mismatch:
    any read that disagrees with the tape.  Printed: txn/s, p50 / p99 ms
    (and by kind), abort rate and the ratio to each direct row, the busy
    share, the server's peak device memory.
+15. The mesh (``MESH``), as eight shards on the one card: the process's
+   mesh devices are set to eight entries of the card
+   (``runtime.set_mesh_devices``), so every shard's state, launch and
+   gather runs there and no peer copy between cards is exercised.  Leg
+   a: phase 4's batches (K = 1,000,000, B = 65,536, int32) through
+   ``ShardedOrsetStore`` and, step for step, an unsharded store on the
+   card (2 warm-ups, 15 timed steps, a collective GC every 4, a full
+   read each step, both on the plain store functions, as the JAX
+   package's sharded store runs them): equal overflow and presence at
+   every step, a GST equal to the min of the shards' frontiers computed
+   on the unsharded state, equal gathered state, the final presence
+   also equal to the ``orset_read_packed`` kernel's; ``read_keys_groups``
+   of 8 groups in one dispatch, equal to each group's ``read_keys`` and
+   the unsharded store's; the same again at K = 65,549 (a padded tail,
+   sliced off).  Leg b: benches/config18_podshard.py's node through
+   ``AntidoteGPU`` with ``mat_sharded`` on and off, every read equal.
+   Leg c: 8 ring-placed partitions with the device stable fold, every
+   GST fold taken as a (device, host) pair that must agree, config 6's
+   mix, every touched key read back; then ``entry.dryrun_multichip(8)``.
+   Printed: step ms sharded and unsharded, merges/s, launches a step
+   (torch.profiler), ms of the gather-min and of a collective GC, bytes
+   a shard, peak memory, dispatches a drain, resident %, txn/s.
 
 The line before the last carries the nvidia-smi reading, the ones before
-it the ``kernels``, ``pb``, ``cluster``, ``multidc``, ``txn``, ``gate``,
-``plane`` and ``types`` JSON objects; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
+it the ``kernels``, ``mesh``, ``pb``, ``cluster``, ``multidc``, ``txn``,
+``gate``, ``plane`` and ``types`` JSON objects; the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside it, the script exits non-zero and prints
 no result.
 """
@@ -284,9 +309,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from antidote_tpu_torch import _cuda, entry, stats
+from antidote_tpu_torch import _cuda, entry, runtime, stats
 from antidote_tpu_torch.api import AntidoteGPU, TransactionAborted
-from antidote_tpu_torch.clocks import VC
+from antidote_tpu_torch.clocks import VC, dense
 from antidote_tpu_torch.config import Config
 from antidote_tpu_torch.crdt import get_type
 from antidote_tpu_torch.crdt.base import sorted_values
@@ -296,8 +321,9 @@ from antidote_tpu_torch.interdc import synth as gsynth
 from antidote_tpu_torch.interdc.wire import InterDcTxn
 from antidote_tpu_torch.mat import device_plane
 from antidote_tpu_torch.mat import gpu_kernels as gk
-from antidote_tpu_torch.mat import (ingest, rga_kernel, rga_store, store,
-                                    synth)
+from antidote_tpu_torch.mat import (ingest, rga_kernel, rga_store, sharded,
+                                    store, synth)
+from antidote_tpu_torch.meta.device_stable import DeviceStableTimeTracker
 from antidote_tpu_torch.meta.gossip import StableTimeTracker
 from antidote_tpu_torch.obs.prof import profiler
 
@@ -5024,6 +5050,486 @@ def phase_pb(device):
     return row
 
 
+#: phase 15, the mesh: eight shards on the one card (``shards`` entries
+#: of ``cuda:0`` as the process's mesh devices).  Leg a is phase 4's
+#: superstep at BASELINE config 2's width through the sharded store,
+#: beside the same store unsharded, then again at a keyspace with a
+#: padded tail; leg b benches/config18_podshard.py's node through
+#: AntidoteGPU, mat_sharded on and off; leg c ring placement with the
+#: device stable fold under config 6's mix, then dryrun_multichip
+MESH = dict(
+    shards=8,
+    a=dict(K=K_FULL, B=B_FULL, warmup=WARMUP, steps=STEPS,
+           gc_every=GC_EVERY, groups=8, group_keys=64, collectives=50,
+           pad_K=65_549, pad_B=8_192, pad_steps=8,
+           source="BASELINE config 2 (bench.py:62, 1,000,000 keys, "
+                  "65,536 ops a step), phase 4's superstep: L = E = D = "
+                  "8, 3 DCs, int32"),
+    b=dict(readers=8, keys=4, burst=33, rounds=4,
+           source="benches/config18_podshard.py:60-79 (build_db: "
+                  "n_partitions=1, device_lanes=64, device_gc_ops=256, "
+                  "device_key_capacity=4,096; 8 readers, 4 keys a type, "
+                  "bursts of 33, counter_pn, set_aw, register_lww, "
+                  "flag_ew), main's quick run of 4 rounds"),
+    c=dict(n_partitions=8, keys=2_048, threads=2, txns=250,
+           source="BASELINE config 6's mix (benches/config6_txn.py "
+                  "run_direct, K = 2,048) over 8 ring-placed partitions "
+                  "(device_placement='ring', device_store=True)"),
+)
+MESH_TYPES = ("counter_pn", "set_aw", "register_lww", "flag_ew")
+
+
+def state_equal(what, got, want):
+    """Every tensor field of two shard states is equal, exactly."""
+    for f in fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(b, torch.Tensor):
+            if a.shape != b.shape or a.dtype != b.dtype \
+                    or not torch.equal(a.to(b.device), b):
+                fail(f"[mesh] {what}: field {f.name} differs")
+        elif a != b:
+            fail(f"[mesh] {what}: {f.name} {a} != {b}")
+
+
+def shard_frontiers(st, n, kps):
+    """Each shard's applied frontier, computed on the unsharded state
+    over the shard's key range: the max commit VC of its live lanes,
+    joined with the base (what the sharded GC's pmin reduces)."""
+    cvc = dense.commit_vc(st.op_ss, st.op_dc, st.op_ct)
+    live = torch.where(st.valid2d[..., None], cvc, 0)
+    base = torch.where(st.has_base, st.base_vc, 0)
+    return [torch.maximum(live[i * kps:(i + 1) * kps].amax(dim=(0, 1)),
+                          base) for i in range(n)]
+
+
+def device_kernels(fn, device):
+    """Device kernel launches and device ms of one call of ``fn``, from
+    torch.profiler (None where it sees no device time)."""
+    if device.type != "cuda":
+        return None, None
+    sync(device)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(device)
+    evs = [e for e in prof.events()
+           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    if not evs:
+        return None, None
+    return len(evs), sum(e.device_time_total for e in evs) / 1e3
+
+
+def mesh_run(device, mesh, K, B, warmup, steps, gc_every, seed):
+    """The superstep's batches through a ShardedOrsetStore over ``mesh``
+    and an unsharded store on ``device``, step for step: append, a
+    collective GC every ``gc_every`` steps (the unsharded store folds at
+    the GST the sharded one returns, which must equal the min of the
+    shards' frontiers computed on the unsharded state), a full read at
+    the batch's frontier.  Both are timed step by step (the sharded
+    run's first, each after ``warmup`` steps); returns the figures."""
+    rng = np.random.default_rng(seed)
+    clock = np.zeros(N_DCS, dtype=np.int32)
+    batches = [entry.make_batch(rng, K, B, D, N_DCS, clock, obs_lag=2,
+                                device=device)
+               for _ in range(warmup + steps)]
+    fronts = [entry.batch_frontier(b) for b in batches]
+    sh = sharded.ShardedOrsetStore(mesh, K, L, E, D, dtype=torch.int32)
+    st = store.orset_shard_init(K, L, E, D, dtype=torch.int32, device=device)
+    n, kps = sh.n_shards, sh.keys_per_shard
+    gsts, dropped = [], 0
+
+    def sharded_step(i, b):
+        ov = sh.append(*(b[k] for k in entry.BATCH_FIELDS))
+        gst = sh.gc_collective() if (i + 1) % gc_every == 0 else None
+        return ov, gst, sh.read(fronts[i])
+
+    def plain_step(i, b, gst):
+        nonlocal st
+        st, ov = store.orset_append(st, *(b[k] for k in entry.BATCH_FIELDS))
+        if gst is not None:
+            want = torch.stack(shard_frontiers(st, n, kps)).amin(dim=0)
+            if not torch.equal(gst, want):
+                fail(f"[mesh] K={K} step {i}: the GST {gst.tolist()} is "
+                     f"not the min of the shards' frontiers "
+                     f"{want.tolist()}")
+            st = store.orset_gc(st, gst)
+        return ov, store.orset_read(st, fronts[i])
+
+    times = {"sharded": [], "plain": []}
+    torch_peak = None
+    for i, b in enumerate(batches):
+        sync(device)
+        t0 = time.perf_counter()
+        ov, gst, present = sharded_step(i, b)
+        sync(device)
+        t1 = time.perf_counter()
+        ov2, present2 = plain_step(i, b, gst)
+        sync(device)
+        t2 = time.perf_counter()
+        if i >= warmup:
+            times["sharded"].append(t1 - t0)
+            times["plain"].append(t2 - t1)
+        if not (torch.equal(ov, ov2) and torch.equal(present, present2)):
+            fail(f"[mesh] K={K} step {i}: the sharded store's overflow or "
+                 f"presence differs from the unsharded store's")
+        if gst is not None:
+            gsts.append(gst.tolist())
+        if i >= warmup:
+            dropped += int(ov.sum())
+        if i == warmup - 1 and device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+    if device.type == "cuda":
+        torch_peak = torch.cuda.max_memory_allocated()
+    whole = sharded.gather_state(sh.st)
+    state_equal(f"K={K} gathered state", whole, st)
+    final = sh.read(fronts[-1])
+    if tuple(final.shape) != (K, E):
+        fail(f"[mesh] K={K}: read shape {tuple(final.shape)} (the padded "
+             f"tail is not sliced off)")
+    kernel = gk.orset_read_packed(st.dots, st.ops, st.valid, st.base_vc,
+                                  st.has_base, fronts[-1])
+    if not (torch.equal(final, store.orset_read(st, fronts[-1]))
+            and torch.equal(final, kernel)):
+        fail(f"[mesh] K={K}: the sharded presence differs from the "
+             f"unsharded plain read or the orset_read_packed kernel")
+    step_ms = 1e3 * float(np.median(times["sharded"]))
+    plain_ms = 1e3 * float(np.median(times["plain"]))
+    shard_bytes = sum(nbytes(getattr(sh.st.shards[0], f.name))
+                      for f in fields(sh.st.shards[0])
+                      if isinstance(getattr(sh.st.shards[0], f.name),
+                                    torch.Tensor))
+    row = dict(K=K, B=B, n_keys_padded=sh.n_keys, keys_per_shard=kps,
+               steps=steps, gc_every=gc_every, step_ms=step_ms,
+               plain_step_ms=plain_ms, sharded_over_plain=step_ms / plain_ms,
+               merges_per_s=(B * steps - dropped) / sum(times["sharded"]),
+               plain_merges_per_s=(B * steps - dropped)
+               / sum(times["plain"]),
+               overflow_dropped=dropped, gsts=gsts,
+               bytes_a_shard=shard_bytes, peak_memory=torch_peak,
+               present=int(final.sum()))
+    return row, sh, st, batches, fronts
+
+
+def mesh_leg_a(device, mesh):
+    shp = MESH["a"]
+    row, sh, st, batches, fronts = mesh_run(
+        device, mesh, shp["K"], shp["B"], shp["warmup"], shp["steps"],
+        shp["gc_every"], seed=0)
+    # launches and device ms of one step of each (a fresh batch, the
+    # superstep's calls; both stores then hold the same state again)
+    b = entry.make_batch(np.random.default_rng(99), shp["K"], shp["B"], D,
+                         N_DCS, np.asarray(fronts[-1][:N_DCS].tolist(),
+                                           dtype=np.int32),
+                         obs_lag=2, device=device)
+    fr = entry.batch_frontier(b)
+    holder = {}
+
+    def sharded_step():
+        sh.append(*(b[k] for k in entry.BATCH_FIELDS))
+        holder["gst"] = sh.gc_collective()
+        sh.read(fr)
+
+    def plain_step():
+        nonlocal st
+        st, _ = store.orset_append(st, *(b[k] for k in entry.BATCH_FIELDS))
+        st = store.orset_gc(st, holder["gst"])
+        store.orset_read(st, fr)
+
+    row["launches_a_step"], row["device_ms_a_step"] = device_kernels(
+        sharded_step, device)
+    row["plain_launches_a_step"], row["plain_device_ms_a_step"] = \
+        device_kernels(plain_step, device)
+    if "gst" not in holder:   # the CPU: no profiler run
+        sharded_step()
+        plain_step()
+    state_equal("after the profiled step", sharded.gather_state(sh.st), st)
+    # the collective alone: the shards' frontiers gathered and min-reduced
+    frs = runtime.shard_map(sharded._frontier, mesh, [sh.st.shards])
+    with runtime.COLLECTIVE_LOCK:
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(shp["collectives"]):
+            runtime.pmin(frs, mesh)
+        sync(device)
+    row["pmin_ms"] = 1e3 * (time.perf_counter() - t0) / shp["collectives"]
+    sync(device)
+    t0 = time.perf_counter()
+    sh.gc_collective()
+    sync(device)
+    row["gc_collective_ms"] = 1e3 * (time.perf_counter() - t0)
+    st = store.orset_gc(st, torch.stack(shard_frontiers(
+        st, sh.n_shards, sh.keys_per_shard)).amin(dim=0))
+    state_equal("after a timed collective GC", sharded.gather_state(sh.st),
+                st)
+    # read_keys_groups: 8 groups at 8 snapshots in one dispatch, against
+    # each group's read_keys and the unsharded store's
+    rng = np.random.default_rng(5)
+    groups = [(rng.integers(0, shp["K"], shp["group_keys"]).astype(np.int64),
+               fronts[-1 - g].cpu().numpy()) for g in range(shp["groups"])]
+    d0 = device_plane.read_dispatch_count()
+    got = sh.read_keys_groups(groups)
+    row["groups_dispatches"] = device_plane.read_dispatch_count() - d0
+    if row["groups_dispatches"] != 1:
+        fail(f"[mesh] read_keys_groups took {row['groups_dispatches']} "
+             f"dispatches, not 1")
+    for (k, v), g in zip(groups, got):
+        one = sh.read_keys(k, v).cpu()
+        plain = store.orset_read_keys(
+            st, torch.from_numpy(k).to(device),
+            torch.from_numpy(v).to(device)).cpu()
+        if not (torch.equal(torch.from_numpy(g), one)
+                and torch.equal(one, plain)):
+            fail("[mesh] read_keys_groups differs from the group's "
+                 "read_keys or the unsharded store's")
+    print(f"[mesh] leg a K={shp['K']} over {sh.n_shards} shards: "
+          f"{row['step_ms']:.3f} ms a step sharded, {row['plain_step_ms']:.3f}"
+          f" unsharded; {row['merges_per_s']:.0f} merges/s; launches a "
+          f"step {row['launches_a_step']} vs {row['plain_launches_a_step']};"
+          f" pmin {row['pmin_ms']:.4f} ms, collective GC "
+          f"{row['gc_collective_ms']:.3f} ms; {row['bytes_a_shard']} B a "
+          f"shard; peak {row['peak_memory']} B", flush=True)
+    del sh, st, batches
+    pad = MESH["a"]
+    prow, *_ = mesh_run(device, mesh, pad["pad_K"], pad["pad_B"],
+                        pad["warmup"], pad["pad_steps"], pad["gc_every"],
+                        seed=1)
+    print(f"[mesh] leg a K={pad['pad_K']} (padded to "
+          f"{prow['n_keys_padded']}): equal, the tail sliced off; "
+          f"{prow['step_ms']:.3f} ms a step", flush=True)
+    row["padded"] = prow
+    row["source"] = shp["source"]
+    return row
+
+
+def config18_tape():
+    """benches/config18_podshard.py's tape: each measured key written
+    once, and the probe keys."""
+    ops = []
+    for i in range(MESH["b"]["keys"]):
+        ops += [((f"ctr_{i:02d}", "counter_pn"), "increment", i + 1),
+                ((f"set_{i:02d}", "set_aw"), "add", f"e{i}".encode()),
+                ((f"lww_{i:02d}", "register_lww"), "assign",
+                 f"v{i}".encode()),
+                ((f"few_{i:02d}", "flag_ew"), "enable", ())]
+    touch = {"counter_pn": ("increment", 1), "set_aw": ("add", b"e"),
+             "register_lww": ("assign", b"r0"), "flag_ew": ("enable", ())}
+    ops += [((f"prb_{t}", t), *touch[t]) for t in MESH_TYPES]
+    return ops
+
+
+def config18_burst(r):
+    ops = []
+    for i in range(MESH["b"]["keys"]):
+        ops += [((f"ctr_{i:02d}", "counter_pn"), "increment", 1),
+                ((f"set_{i:02d}", "set_aw"), "add", f"e{i}".encode()),
+                ((f"lww_{i:02d}", "register_lww"), "assign",
+                 f"r{r}".encode()),
+                ((f"few_{i:02d}", "flag_ew"), "enable", ())]
+    return ops
+
+
+def config18_keys():
+    return [(f"{p}_{i:02d}", t) for i in range(MESH["b"]["keys"])
+            for p, t in zip(("ctr", "set", "lww", "few"), MESH_TYPES)]
+
+
+def config18_leg(device, sharded_on):
+    """benches/config18_podshard.py's run_leg on AntidoteGPU: the tape,
+    then each round a burst of write-only commits that retires every
+    cached value, a probe read of other keys that flushes the planes,
+    and the readers' stampede of the measured keys (half at the round's
+    clock, half at the latest).  Returns (settled values, every round's
+    values, dispatches a drain, resident %, the largest shard's state
+    bytes, all state bytes)."""
+    shp = MESH["b"]
+    cfg = Config(n_partitions=1, metrics_port=None, mat_sharded=sharded_on,
+                 device_lanes=64, device_gc_ops=256,
+                 device_key_capacity=4096)
+    d = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    db = AntidoteGPU(dc_id="bench18", config=cfg, data_dir=d, device=device)
+    keys, reg = config18_keys(), stats.registry
+    try:
+        pm = db.node.partitions[0]
+        if (pm.device.mesh is not None) != sharded_on:
+            fail(f"[mesh] leg b: mat_sharded={sharded_on} gave mesh "
+                 f"{pm.device.mesh}")
+        clock = None
+        for bo, op, arg in config18_tape():
+            clock = db.update_objects_static(clock, [(bo, op, arg)])
+        vals0, _ = db.read_objects_static(None, keys)
+        barrier = threading.Barrier(shp["readers"] + 1)
+        results, errors = [None] * shp["readers"], []
+        round_clock, stop = [clock], [False]
+
+        def reader(slot):
+            while True:
+                barrier.wait()
+                if stop[0]:
+                    return
+                try:
+                    vc = round_clock[0] if slot % 2 else None
+                    results[slot] = db.read_objects_static(vc, keys)[0]
+                except Exception as e:  # noqa: BLE001 — failed below
+                    errors.append(e)
+                barrier.wait()
+
+        threads = [threading.Thread(target=reader, args=(i,), daemon=True)
+                   for i in range(shp["readers"])]
+        for t in threads:
+            t.start()
+        rounds, disp, drains = [], 0, 0
+        for r in range(shp["rounds"]):
+            for _ in range(shp["burst"]):
+                clock = db.update_objects_static(clock, config18_burst(r))
+            round_clock[0] = clock
+            db.read_objects_static(None, [(f"prb_{t}", t)
+                                          for t in MESH_TYPES])
+            d0 = device_plane.read_dispatch_count()
+            dr0 = reg.shard_serve_drains.value()
+            barrier.wait()
+            barrier.wait()
+            if errors:
+                fail(f"[mesh] leg b reader: {errors[0]!r}")
+            if any(v != results[0] for v in results):
+                fail("[mesh] leg b: the stampede's reads differ")
+            for i in range(shp["keys"]):
+                want = (i + 1) + shp["burst"] * (r + 1)
+                if results[0][4 * i] != want:
+                    fail(f"[mesh] leg b: ctr_{i:02d} read "
+                         f"{results[0][4 * i]}, not {want}")
+            disp += device_plane.read_dispatch_count() - d0
+            drains += reg.shard_serve_drains.value() - dr0
+            rounds.append(results[0])
+        stop[0] = True
+        barrier.wait()
+        for t in threads:
+            t.join(timeout=5)
+        resident = sum(1 for p in pm.device.planes.values()
+                       for _ in getattr(p, "key_index", {}))
+        total = resident + len(pm.device.host_only)
+        per_shard, all_bytes = {}, 0
+        for p in pm.device.planes.values():
+            st = getattr(p, "st", None)
+            parts = (list(enumerate(st.shards))
+                     if isinstance(st, sharded.ShardedState) else [(0, st)])
+            for i, s in parts:
+                if isinstance(s, dict) or s is None:
+                    continue
+                b = sum(nbytes(getattr(s, f.name)) for f in fields(s)
+                        if isinstance(getattr(s, f.name), torch.Tensor))
+                per_shard[i] = per_shard.get(i, 0) + b
+                all_bytes += b
+        if drains < shp["rounds"]:
+            fail(f"[mesh] leg b: {drains} serve drains over "
+                 f"{shp['rounds']} rounds")
+        return (vals0, rounds, disp / drains, 100.0 * resident / total,
+                max(per_shard.values()), all_bytes)
+    finally:
+        db.close()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def mesh_leg_b(device):
+    shp = MESH["b"]
+    on = config18_leg(device, True)
+    off = config18_leg(device, False)
+    if on[0] != off[0] or on[1] != off[1]:
+        fail("[mesh] leg b: the sharded node read other values than the "
+             "unsharded one")
+    row = dict(source=shp["source"], rounds=shp["rounds"],
+               dispatches_per_drain=on[2], plain_dispatches_per_drain=off[2],
+               unfused_dispatches_per_drain=2 * len(MESH_TYPES),
+               resident_pct=on[3], plain_resident_pct=off[3],
+               shard_max_bytes=on[4], plain_max_bytes=off[4],
+               state_bytes=on[5])
+    print(f"[mesh] leg b (config 18): {row['dispatches_per_drain']:.3f} "
+          f"dispatches a drain sharded, {row['plain_dispatches_per_drain']:.3f}"
+          f" unsharded; resident {row['resident_pct']:.1f} %; largest shard"
+          f" {row['shard_max_bytes']} B of {row['state_bytes']} B",
+          flush=True)
+    return row
+
+
+def mesh_leg_c(device, n_shards):
+    """Ring placement over the mesh devices with the device stable
+    fold: every GST fold is taken as a (device, host) pair and must
+    agree; config 6's mix, every touched key read back against the tape;
+    then dryrun_multichip."""
+    shp = MESH["c"]
+    K, tape, touched = shp["keys"], TxnTape(), set()
+    cfg = Config(n_partitions=shp["n_partitions"], sync_log=False,
+                 device_store=True, device_placement="ring")
+    folds = [0]
+    with txn_db(cfg, device=device) as db:
+        node = db.node
+        trk = node.stable_tracker
+        if not isinstance(trk, DeviceStableTimeTracker) \
+                or len(trk.devices) != n_shards:
+            fail(f"[mesh] leg c: the node's stable tracker is {trk!r}")
+        devs = runtime.mesh_devices(device)
+        for p, pm in enumerate(node.partitions):
+            if pm.device.device != devs[p % len(devs)]:
+                fail(f"[mesh] leg c: partition {p} on {pm.device.device}")
+
+        def checked():
+            dev, host = trk.snapshot_pair()
+            if dict(dev) != dict(host):
+                fail(f"[mesh] leg c: the device GST {dict(dev)} differs "
+                     f"from the host oracle {dict(host)}")
+            folds[0] += 1
+            return dev
+
+        node.stable_vc_provider = checked
+        t0 = time.perf_counter()
+        txn_fill(db, K, tape, read_back=False)
+        dt, lat, aborts = txn_mix(db, shp["threads"], shp["txns"], K, 15,
+                                  tape, touched=touched)
+        check_tape("mesh leg c", db, tape, touched)
+        node.stable_vc_provider = trk.get_stable_snapshot
+        row = dict(source=shp["source"], partitions=shp["n_partitions"],
+                   txns=len(lat), aborts=aborts, txn_per_s=len(lat) / dt,
+                   gst_folds=folds[0], touched_keys=len(touched),
+                   seconds=time.perf_counter() - t0)
+    if folds[0] == 0:
+        fail("[mesh] leg c: no GST fold ran")
+    t0 = time.perf_counter()
+    row["dryrun"] = entry.dryrun_multichip(n_shards)
+    row["dryrun_s"] = time.perf_counter() - t0
+    print(f"[mesh] leg c: {row['txns']} txns at {row['txn_per_s']:.0f} "
+          f"txn/s, {folds[0]} GST folds equal to the host oracle, "
+          f"{len(touched)} keys read back; dryrun_multichip({n_shards}): "
+          f"{row['dryrun']}", flush=True)
+    return row
+
+
+def phase_mesh(device):
+    """Phase 15: the mesh as eight shards on ``device`` (eight entries of
+    it as the process's mesh devices), legs a, b and c.  Returns its
+    row."""
+    errors = ErrorRecords()
+    port_log = logging.getLogger("antidote_tpu_torch")
+    port_log.addHandler(errors)
+    prev = runtime.set_mesh_devices([device] * MESH["shards"])
+    try:
+        t0 = time.perf_counter()
+        mesh = runtime.Mesh(runtime.mesh_devices(), "part")
+        row = dict(shards=MESH["shards"], devices=[str(d)
+                                                   for d in mesh.devices],
+                   peer_copies=not mesh.virtual)
+        row["a"] = mesh_leg_a(device, mesh)
+        row["b"] = mesh_leg_b(device)
+        row["c"] = mesh_leg_c(device, MESH["shards"])
+        errors.check("phase 15")
+        if foreign_modules():
+            fail(f"[mesh] modules of jax or the JAX package loaded: "
+                 f"{foreign_modules()[:5]}")
+        row["seconds"] = time.perf_counter() - t0
+    finally:
+        runtime.set_mesh_devices(prev)
+        port_log.removeHandler(errors)
+    return row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
                                  "one GPU (the module's docstring).")
@@ -5039,6 +5545,9 @@ def main(argv=None):
     ap.add_argument("--pb-only", action="store_true",
                     help="run phases 1, 2 and 14 (the wire protocol and "
                     "the console) only")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="run phases 1, 2 and 15 (the mesh as eight "
+                    "shards on the card) only")
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of an earlier commit whose fixpoint "
                     "wrapper phase 10 times in turns with this one")
@@ -5070,11 +5579,11 @@ def main(argv=None):
         print(f"[build] ptxas:\n{report}", flush=True)
 
     rows = []
-    only = [o for o in ("gate", "txn", "multidc", "cluster", "pb")
+    only = [o for o in ("gate", "txn", "multidc", "cluster", "pb", "mesh")
             if getattr(args, f"{o}_only")]
     if len(only) > 1:
         ap.error("at most one of --gate-only, --txn-only, --multidc-only, "
-                 "--cluster-only, --pb-only")
+                 "--cluster-only, --pb-only, --mesh-only")
     everything = not only
     if everything:
         t0 = time.perf_counter()
@@ -5111,6 +5620,8 @@ def main(argv=None):
                     "dc3_fixpoint_launches"]
     if everything or args.pb_only:
         pb = phase_pb(device)
+    if everything or args.mesh_only:
+        mesh = phase_mesh(device)
     if everything:
         print(json.dumps({"types": types}))
         print(json.dumps({"plane": plane}))
@@ -5124,6 +5635,8 @@ def main(argv=None):
         print(json.dumps({"cluster": cluster}))
     if everything or args.pb_only:
         print(json.dumps({"pb": pb}))
+    if everything or args.mesh_only:
+        print(json.dumps({"mesh": mesh}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

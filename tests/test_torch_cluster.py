@@ -37,16 +37,22 @@ the port alone, where each DC of the port must read the same final
 values.  ``test_causal_visibility_federation[ring]`` and
 ``test_full_elasticity_soak`` are known reference-side flakes (ROADMAP
 §3; ``[ring]``'s JAX half can abort its process inside XLA), whose
-port half runs here and must pass.  No case is retried.
+port half runs here and must pass.  The four answer-plane cases that ask
+the same read twice run on both halves with the race between a reply
+and its publish removed (``HOLDS``: the second ask waits for the
+first's answer to be published; ``test_answer_plane_repeat_waits_for_the_publish``
+drives that race in each package).  No case is retried.
 """
 
 import glob
+import importlib
 import json
 import os
 import signal
 import subprocess
 import sys
 import threading
+import time
 
 import pytest
 import torch
@@ -187,6 +193,46 @@ def _repaired_reference(monkeypatch):
     monkeypatch.setattr(jfed, "gate_from_config", new_gate)
 
 
+FABRIC = "tests/cluster/test_fabric_interop.py"
+
+
+def _publish_before_repeat(loader, monkeypatch):
+    """test_fabric_interop's ``_ask_twice`` with its race removed, for
+    the package of ``loader``: the node's worker replies to the first
+    ask (``nl_reply``) before it publishes the answer (``nl_publish``),
+    in both packages, so a repeat that reaches the event thread between
+    the two enters Python and "was not answered natively".  Here the
+    first ask returns once its answer is published, and then the
+    reference's own checks run."""
+    cls = loader.module(FABRIC).TestAnswerPlaneDifferential
+
+    def ask_twice(self, asker, owner, kind, payload):
+        c0 = owner.link.fabric_counters()
+        r1 = asker.link.request(owner.node_id, kind, payload)
+        deadline = time.monotonic() + 10.0
+        while owner.link.fabric_counters()["published"] \
+                <= c0["published"] and time.monotonic() < deadline:
+            time.sleep(0.001)
+        mid = owner.link.fabric_counters()["native_answered"]
+        r2 = asker.link.request(owner.node_id, kind, payload)
+        c1 = owner.link.fabric_counters()["native_answered"]
+        assert mid == c0["native_answered"], \
+            f"{kind}: first ask must take the Python path"
+        assert c1 == mid + 1, f"{kind}: repeat was not answered natively"
+        return r1, r2
+
+    monkeypatch.setattr(cls, "_ask_twice", ask_twice)
+
+
+#: cases run with a timing race of the reference case removed, on both
+#: packages (ROADMAP §3)
+HOLDS = {f"test_fabric_interop::TestAnswerPlaneDifferential.{q}":
+         _publish_before_repeat for q in (
+             "test_snap_read_at_clock", "test_gap_repair_range_read",
+             "test_handoff_byte_read",
+             "test_ring_change_invalidates_published_answers")}
+
+
 @pytest.mark.parametrize("rel,qual,params", CASES,
                          ids=[rx.case_id(*c) for c in CASES])
 def test_reference_case_on_both(rel, qual, params, tmp_path, monkeypatch):
@@ -194,10 +240,40 @@ def test_reference_case_on_both(rel, qual, params, tmp_path, monkeypatch):
     compared = cid in COMPARED
     if cid in BOTH:
         _repaired_reference(monkeypatch)
+    if cid in HOLDS:
+        for loader in LOADERS:
+            HOLDS[cid](loader, monkeypatch)
     jax_rec, port_rec = rx.run_on_both(
         LOADERS, rel, qual, params, tmp_path, monkeypatch,
         jax=compared or cid in BOTH)
     rx.assert_finals(jax_rec, port_rec, compared)
+
+
+@pytest.mark.parametrize("port", [False, True], ids=["jax", "port"])
+def test_answer_plane_repeat_waits_for_the_publish(port, tmp_path,
+                                                   monkeypatch):
+    """The race ``HOLDS`` removes, driven in each package: with every
+    publish held back 0.3 s after its reply, the reference's
+    ``_ask_twice`` sends its repeat before the answer is published, and
+    the repeat enters Python; with ``_publish_before_repeat`` the same
+    case passes."""
+    pkg = ("antidote_tpu", "antidote_tpu_torch")[port]
+    lib = importlib.import_module(f"{pkg}.cluster.nativelink")._load()
+    publish = lib.nl_publish
+
+    def late(*a):
+        time.sleep(0.3)
+        return publish(*a)
+
+    monkeypatch.setattr(lib, "nl_publish", late)
+    loader = rx.Loader(port=bool(port))
+    case = ("TestAnswerPlaneDifferential.test_snap_read_at_clock", {})
+    with pytest.raises(AssertionError, match="not answered natively"):
+        rx.run_case(loader.module(FABRIC), FABRIC, *case,
+                    tmp_path / "raced", monkeypatch, loader=loader)
+    _publish_before_repeat(loader, monkeypatch)
+    rx.run_case(loader.module(FABRIC), FABRIC, *case, tmp_path / "held",
+                monkeypatch, loader=loader)
 
 
 def test_reference_cases_are_all_here():

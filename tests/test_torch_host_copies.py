@@ -8,8 +8,9 @@ the partition manager, the read serve plane, the remote-call errors,
 the coordinator, and the inter-DC plane's pub/sub, gap repair, interest
 routing, bounded-counter transfers and the observability it imports,
 the TCP transport with its native publish hub, the node fabric in
-Python and native, and the wire protocol with its generated protobuf
-modules and their schemas) equal their sources line for line, but for the
+Python and native, the wire protocol with its generated protobuf
+modules and their schemas, and bench.py's native OR-Set baseline) equal
+their sources line for line, but for the
 package name in their import statements, and so do the single classes,
 functions and assignments the port copied out of larger modules: a
 change on either side that is not carried over fails here.  A copy
@@ -102,7 +103,8 @@ DIFFERS = {
 #: copies whose bytes equal their source's: protobuf's generated modules
 #: register their serialized descriptors in one pool (pb/__init__.py)
 BYTES = ["pb/antidote_pb2.py", "pb/antidote_compat_pb2.py",
-         "pb/antidote.proto", "pb/antidote_compat.proto"]
+         "pb/antidote.proto", "pb/antidote_compat.proto",
+         "native/orset_baseline.cpp"]
 #: (module, top-level class, function or assigned name) copied alone
 EXCERPTS = [("txn/manager.py", "PartitionRetired"),
             ("oplog/log.py", "_fsync_dir"),
@@ -169,3 +171,44 @@ def test_copy_is_byte_identical(rel):
     with open(os.path.join(REPO, "antidote_tpu", rel), "rb") as a, \
             open(os.path.join(REPO, "antidote_tpu_torch", rel), "rb") as b:
         assert a.read() == b.read()
+
+
+def test_orset_baseline_builds_and_runs_alike():
+    """The copied native OR-Set baseline (bench.py's CPU yardstick)
+    builds through each package's native/build.py with g++ and, fed the
+    same seeded stream (bench.py's ``_baseline_stream`` shape), leaves
+    the same count of live dots in both libraries."""
+    import ctypes
+
+    import numpy as np
+
+    from antidote_tpu.native import build as jbuild
+    from antidote_tpu_torch.native import build as tbuild
+
+    rng = np.random.default_rng(1)
+    n_ops, K = 20_000, 512
+    arrays = (rng.integers(0, K, n_ops).astype(np.int64),
+              (rng.random(n_ops) < 0.7).astype(np.uint8),
+              rng.integers(0, 8, n_ops).astype(np.int32),
+              rng.integers(0, 3, n_ops).astype(np.int32),
+              np.arange(1, n_ops + 1, dtype=np.int64))
+    types = (ctypes.c_int64, ctypes.c_uint8, ctypes.c_int32,
+             ctypes.c_int32, ctypes.c_int64)
+    live = []
+    for build in (jbuild, tbuild):
+        so = build.ensure_built("orset_baseline")
+        assert so is not None, "g++ did not build orset_baseline.cpp"
+        lib = ctypes.CDLL(so)
+        lib.orset_baseline_run.restype = ctypes.c_double
+        lib.orset_baseline_run.argtypes = [ctypes.c_int64] + [
+            ctypes.POINTER(t) for t in types] + [
+            ctypes.POINTER(ctypes.c_int64)]
+        out = ctypes.c_int64(0)
+        secs = lib.orset_baseline_run(
+            n_ops, *(a.ctypes.data_as(ctypes.POINTER(t))
+                     for a, t in zip(arrays, types)), ctypes.byref(out))
+        assert secs >= 0
+        live.append(out.value)
+    assert live[0] == live[1] > 0
+    assert tbuild.lib_path("orset_baseline").startswith(
+        os.path.join(REPO, "antidote_tpu_torch", "native", "_build"))

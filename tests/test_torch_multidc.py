@@ -33,11 +33,13 @@ Both tracers sample nothing (the JAX kernel-span fallback breaks
 sampled device reads, ROADMAP §3)."""
 
 import ast
+import importlib
 import inspect
 import numbers
 import os
 import re
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -315,6 +317,58 @@ def test_reference_case_on_both(name, qual, tmp_path, monkeypatch):
                         tmp_path / ("port" if port else "jax"))
         got.append((out, rec.finals))
     assert got[0] == got[1]
+
+
+@pytest.mark.parametrize("port", [False, True], ids=["jax", "port"])
+def test_gr_final_read_waits_for_the_scalar_gst(port, tmp_path,
+                                                monkeypatch):
+    """test_gr.py's replicated read, with dc1's heartbeats held once dc2
+    has read dc1's write: dc3's stable snapshot comes to cover the join
+    of both commits (dc2's heartbeats carry its entry past dc2's +1),
+    yet the scalar GST, the min over the entries, stays at dc1's last
+    heartbeat, below the +1's commit time, so a GentleRain read at dc3
+    leaves the +1 out, in both packages alike (GentleRain's visibility
+    rule, not a fault of either).  The recorder's final read waits for
+    the scalar (``torch_refexec.wait_covered``): it must not return
+    while dc1 is held, and once dc1 beats again it returns and the read
+    shows the +1."""
+    monkeypatch.setattr(
+        tdc_mod, "resolve_device",
+        lambda device=None: torch.device("cpu" if device is None
+                                         else device))
+    bus = importlib.import_module(
+        f"{PKGS[port].__name__}.interdc.transport").InProcBus()
+    dcs = _module("conftest", port)["make_cluster"](bus, tmp_path, 3,
+                                                     txn_prot="gr")
+    try:
+        dc1, dc2, dc3 = dcs
+        bo = ("gr_multi", "counter_pn", "bkt")
+        ct = dc1.update_objects_static(None, [(bo, "increment", 4)])
+        while True:
+            vals, rvc = dc2.read_objects_static(None, [bo])
+            if vals == [4]:
+                break
+        dc1._hb_worker.stop()
+        ct2 = dc2.update_objects_static(rvc, [(bo, "increment", 1)])
+        target = ct.join(ct2)
+        node = dc3.node
+        deadline = time.monotonic() + 10.0
+        while not type(target)(node.stable_vc()).ge(target):
+            assert time.monotonic() < deadline, "stable never covered"
+            time.sleep(0.005)
+        assert dc3.read_objects_static(target, [bo])[0] == [4]
+        done = threading.Event()
+        waiter = threading.Thread(
+            target=lambda: (rx.wait_covered(node, target), done.set()),
+            daemon=True)
+        waiter.start()
+        assert not done.wait(0.5), "the final read ran below the +1"
+        dc1.tick_heartbeats()
+        assert done.wait(10.0)
+        assert dc3.read_objects_static(target, [bo])[0] == [5]
+    finally:
+        for dc in dcs:
+            dc.close()
 
 
 def test_reference_cases_are_all_here():

@@ -466,15 +466,25 @@ class Recorder:
 
 def wait_covered(node, target):
     """Under GentleRain (``txn_prot="gr"``) a static read at a client
-    clock waits only for its own DC's entry and reads at the scalar GST
-    (reference gr_snapshot_obtain), so a final read must first wait,
-    within the node's ``clock_wait_timeout_s``, until the DC's stable
-    snapshot covers ``target``: then the GST does.  Clock-SI reads wait
+    clock waits only for its own DC's entry and reads at a snapshot
+    whose every entry is the scalar GST, the min over the stable
+    snapshot's entries (reference gr_snapshot_obtain), so a commit is
+    visible only once that scalar reaches every entry of its commit VC.
+    A final read must first wait, within the node's
+    ``clock_wait_timeout_s``, until the DC's stable snapshot covers
+    ``target`` and its scalar GST covers every entry of ``target``: a
+    stable snapshot that covers ``target`` entry by entry can still hold
+    a scalar below a commit's own time, while another DC's entry lags
+    (test_gr_final_read_waits_for_the_scalar_gst).  Clock-SI reads wait
     for every entry themselves."""
     if node.config.txn_prot != "gr":
         return
     deadline = time.monotonic() + node.config.clock_wait_timeout_s
-    while not type(target)(node.stable_vc()).ge(target):
+    top = max(dict(target).values(), default=0)
+    while True:
+        st = type(target)(node.stable_vc())
+        if st.ge(target) and min(dict(st).values(), default=0) >= top:
+            return
         if time.monotonic() > deadline:
             raise TimeoutError(f"stable snapshot never covered {target}")
         time.sleep(0.005)
