@@ -2,13 +2,14 @@
 """Smoke run of the PyTorch/CUDA port (antidote_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--gate-only | --txn-only | --multidc-only |
-                           --cluster-only | --pb-only | --mesh-only]
-                          [--parent DIR]
+                           --cluster-only | --pb-only | --mesh-only |
+                           --durability-only] [--parent DIR]
 
 ``--gate-only`` runs phases 1, 2 and 10 alone, ``--txn-only`` phases 1,
 2 and 11, ``--multidc-only`` phases 1, 2 and 12, ``--cluster-only``
 phases 1, 2 and 13, ``--pb-only`` phases 1, 2 and 14, ``--mesh-only``
-phases 1, 2 and 15; ``--parent DIR`` imports
+phases 1, 2 and 15, ``--durability-only`` phases 1, 2 and 16;
+``--parent DIR`` imports
 the fixpoint wrapper (``ring_fixpoint``) of another checkout at DIR, an
 earlier commit, from its own package and sources, and phase 10 times
 that kernel in turns with this one on the same inputs.  Run from the
@@ -276,10 +277,36 @@ Phases, each of which fails the run on any error or mismatch:
    Printed: step ms sharded and unsharded, merges/s, launches a step
    (torch.profiler), ms of the gather-min and of a collective GC, bytes
    a shard, peak memory, dispatches a drain, resident %, txn/s.
+16. Checkpoint and restart (``DURABLE``): phase 11 leg b's node (16
+   partitions, device_key_capacity 65,536, sync_log off; its keyspace
+   cut again, to 65,536 keys of each of counter_pn and set_aw, for the
+   script's time) with config 13's checkpoint settings (segmented, no
+   truncation, a cut only when asked).  Leg a: an untimed fill, 8 threads x 375 txns of config 6's
+   mix, ``checkpoint_now`` on every partition (the base cut), then
+   config 13's churn, 5 rounds of 32 dirty keys a partition with a cut
+   after each; every key read with the value caches emptied (``want``,
+   which must equal the tape); the node closed, its device memory and
+   threads gone.  Leg b: a new ``AntidoteGPU`` over the same data
+   directory under torch.profiler (the parallel recovery, each
+   partition's checkpoint seeds staged back onto the card through
+   ``DevicePlane.seed_state``); every checkpointed key of both types
+   must be resident on the card; every key must equal ``want`` and
+   config 13's host full-scan oracle (the port's ``Node`` with no device
+   store and no checkpoint over a copy of the data directory whose
+   checkpoint files are removed); then 8 threads x 375 txns of the mix
+   on the restarted node, every touched key read back against the
+   tape.  No phase of the run reaches a kernel of csrc/ here: the
+   planes fold with the plain store functions.  Printed: the base
+   cut's seconds, keys folded on the card and on the host, checkpoint
+   bytes, µs a dirty key and the seconds of each step of a cut
+   (``CUT_STEPS``), restart seconds, the card's busy share and
+   launches over the restart, keys seeded on the card, resident %,
+   txn/s before the cut and after the restart beside phase 11 leg b's.
 
 The line before the last carries the nvidia-smi reading, the ones before
-it the ``kernels``, ``mesh``, ``pb``, ``cluster``, ``multidc``, ``txn``,
-``gate``, ``plane`` and ``types`` JSON objects; the last line is
+it the ``kernels``, ``durability``, ``mesh``, ``pb``, ``cluster``,
+``multidc``, ``txn``, ``gate``, ``plane`` and ``types`` JSON objects;
+the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside it, the script exits non-zero and prints
 no result.
@@ -287,6 +314,7 @@ no result.
 
 import argparse
 import cProfile
+import gc
 import importlib
 import json
 import logging
@@ -5530,6 +5558,356 @@ def phase_mesh(device):
     return row
 
 
+# ------------------------------------------ phase 16: checkpoint and restart
+
+#: phase 11 leg b's deployment (``TXN["b"]``) with config 13's checkpoint
+#: settings, cut and restarted on the card
+DURABLE = dict(
+    n_partitions=16, keys=1 << 16, key_capacity=65_536, threads=8,
+    txns=375, churn_rounds=5, churn_keys=32, read_chunk=1_024,
+    mem_slack=8 << 20,
+    source="phase 11 leg b's deployment: the reference's 16-partition "
+           "ring (config/vars.config:5), config 6's mix, BASELINE config "
+           "2's keyspace cut to 65,536 keys a type (phase 11 leg b: "
+           "131,072), device_key_capacity 65,536, sync_log off; config "
+           "13's checkpoint settings, churn and full-scan oracle "
+           "(benches/config13_ckptseg.py:37-51, :91-102, :170-189)",
+    reduced="keys 131,072 -> 65,536 a type: at 131,072 the phase took "
+            "229 s on an H100 host, 67 s of it the full-scan oracle")
+DURABLE_TYPES = ("counter_pn", "set_aw")
+
+
+def durable_config():
+    """Phase 16's node: phase 11 leg b's, with config 13's checkpoint
+    settings (segmented, no truncation, a cut only when asked)."""
+    return Config(n_partitions=DURABLE["n_partitions"],
+                  device_key_capacity=DURABLE["key_capacity"],
+                  sync_log=False, ckpt=True, ckpt_segmented=True,
+                  ckpt_truncate=False, ckpt_ops=1 << 30, ckpt_bytes=1 << 40)
+
+
+def durable_keys(K):
+    return [(f"c{k}", "counter_pn") for k in range(K)] \
+        + [(f"s{k}", "set_aw") for k in range(K)]
+
+
+def read_at(api, keys, vc):
+    """Every key of ``keys`` read at ``vc`` through read_objects_static,
+    the value caches emptied first.  Returns {key: value}."""
+    for pm in api.node.partitions:
+        with pm._lock:
+            pm._val_cache.clear()
+    got, chunk = {}, DURABLE["read_chunk"]
+    for lo in range(0, len(keys), chunk):
+        part = keys[lo:lo + chunk]
+        vals, _ = api.read_objects_static(
+            vc, [(k, tn, "bucket") for k, tn in part])
+        got.update(zip(part, vals))
+    return got
+
+
+#: the steps of a cut ``ckpt_cut`` times, each an attribute of the
+#: partition manager (``_ckpt_fold``: the fold under the partition
+#: lock), its partition log (the cut's capture, the document's pickle,
+#: fsyncs and rename, the truncation's stage and the adoption) or the
+#: durable log (the fsync of the log up to the cut); the rest of a
+#: cut's wall time is waiting for the partition lock
+CUT_STEPS = (("capture", lambda pm: pm.log, "capture_cut"),
+             ("fold", lambda pm: pm, "_ckpt_fold"),
+             ("log_sync", lambda pm: pm.log.log, "sync"),
+             ("persist", lambda pm: pm.log, "persist_checkpoint"),
+             ("truncation", lambda pm: pm.log, "stage_truncation"),
+             ("adopt", lambda pm: pm.log, "adopt_checkpoint"))
+
+
+def ckpt_cut(db):
+    """``checkpoint_now`` on every partition in turn.  Returns (wall
+    seconds, dirty keys, keys the cut folded on the card, seconds in
+    each of ``CUT_STEPS``): the fold asks the card for a type's
+    device-resident, state-exact dirty keys in one ``read_many``
+    (``_ckpt_fold``) and folds every other key, an evicted one
+    included, on the host."""
+    on_card = [0]
+    steps = dict.fromkeys((name for name, _, _ in CUT_STEPS), 0.0)
+    pms = db.node.partitions
+    for pm in pms:
+        def counted(keys, tn, vc, _rm=pm.device.read_many):
+            got = _rm(keys, tn, vc)
+            on_card[0] += len(got)
+            return got
+
+        pm.device.read_many = counted
+        for name, owner, attr in CUT_STEPS:
+            def timed(*a, _f=getattr(owner(pm), attr), _n=name, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _f(*a, **k)
+                finally:
+                    steps[_n] += time.perf_counter() - t0
+
+            setattr(owner(pm), attr, timed)
+    dirty = sum(len(pm._ckpt_dirty) for pm in pms)
+    try:
+        t0 = time.perf_counter()
+        for pm in pms:
+            if pm.checkpoint_now() is None:
+                fail(f"[durability] partition {pm.partition} cut no "
+                     f"checkpoint")
+        dt = time.perf_counter() - t0
+    finally:
+        for pm in pms:
+            del pm.device.read_many
+            for _, owner, attr in CUT_STEPS:
+                delattr(owner(pm), attr)
+    return dt, dirty, on_card[0], steps
+
+
+def ckpt_bytes(root):
+    """Bytes of every checkpoint file (manifests and segments) under
+    ``root``."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(root) for f in fs if ".ckpt" in f)
+
+
+def churn_keys(db, K):
+    """config 13's churn set, ``churn_keys`` a partition: half counters
+    and half sets of each partition, as (counter, set) pairs."""
+    half = DURABLE["churn_keys"] // 2
+    by_part = {}
+    for k in range(K):
+        for key, tn in ((f"c{k}", 0), (f"s{k}", 1)):
+            slot = by_part.setdefault(
+                db.node.partition_of(key).partition, ([], []))[tn]
+            if len(slot) < half:
+                slot.append(key)
+        if len(by_part) == DURABLE["n_partitions"] and all(
+                len(c) == len(s) == half for c, s in by_part.values()):
+            break
+    return [pair for c, s in by_part.values() for pair in zip(c, s)]
+
+
+def durable_leg_a(d, K, tape):
+    """Leg a: fill, mix, the base cut, config 13's churn with a cut a
+    round, every key read (``want``), close.  Returns (row, want)."""
+    shp = DURABLE
+    threads0 = set(threading.enumerate())
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    db = AntidoteGPU(dc_id="dc1", config=durable_config(), data_dir=d)
+    try:
+        with device_read_timers(db):
+            txn_planes(db, "cuda")
+            t0 = time.perf_counter()
+            n_fill = txn_fill(db, K, tape, read_back=False)
+            fill_s = time.perf_counter() - t0
+            dt, lat, aborts = txn_mix(db, shp["threads"], shp["txns"], K,
+                                      161, tape)
+            mix = dict(txn_per_s=len(lat) / dt, aborts=aborts,
+                       committed=len(lat))
+            torch.cuda.synchronize()
+            base_s, base_dirty, base_card, base_steps = ckpt_cut(db)
+            base_bytes = ckpt_bytes(d)
+            print(f"[durability] leg a: fill {n_fill} updates in "
+                  f"{fill_s:.1f} s, mix {mix['txn_per_s']:.0f} txn/s; base "
+                  f"cut {base_s:.2f} s, {base_dirty} keys ({base_card} "
+                  f"folded on the card), {base_bytes} B", flush=True)
+            pairs = churn_keys(db, K)
+            walls, folds, churn_steps = [], [], []
+            for r in range(shp["churn_rounds"]):
+                elem = b"churn%d" % r
+                ct = db.update_objects_static(None, [
+                    u for c, s in pairs
+                    for u in (((c, "counter_pn", "bucket"), "increment", 1),
+                              ((s, "set_aw", "bucket"), "add", elem))])
+                for c, s in pairs:
+                    tape.commit(ct, c, s, elem)
+                wall, dirty, card, cut_steps = ckpt_cut(db)
+                if dirty != len(pairs) * 2:
+                    fail(f"[durability] churn round {r}: {dirty} dirty "
+                         f"keys, not {len(pairs) * 2}")
+                walls.append(wall)
+                folds.append(card)
+                churn_steps.append(cut_steps)
+            n_dirty = len(pairs) * 2
+            t0 = time.perf_counter()
+            want = check_tape("phase 16 leg a", db, tape, durable_keys(K))
+            read_s = time.perf_counter() - t0
+            row = dict(
+                fill_ops=n_fill, fill_s=fill_s, mix=mix,
+                base_cut=dict(seconds=base_s, keys=base_dirty,
+                              folded_on_card=base_card,
+                              folded_on_host=base_dirty - base_card,
+                              bytes=base_bytes, steps_s=base_steps),
+                churn=dict(rounds=shp["churn_rounds"],
+                           dirty_keys_per_cut=n_dirty,
+                           cut_s=walls, folded_on_card=folds,
+                           steps_s=churn_steps,
+                           persist_us_per_dirty_key=float(
+                               np.median(walls)) * 1e6 / n_dirty),
+                ckpt_bytes=ckpt_bytes(d), want_keys=len(want),
+                want_read_s=read_s)
+    finally:
+        db.close()
+    del db
+    gc.collect()
+    torch.cuda.synchronize()
+    row["memory_before_node"] = mem0
+    row["memory_after_close"] = torch.cuda.memory_allocated()
+    if row["memory_after_close"] - mem0 > shp["mem_slack"]:
+        fail(f"[durability] the closed node still holds "
+             f"{row['memory_after_close'] - mem0} B on the card")
+    left = [t for t in threading.enumerate()
+            if t not in threads0 and t.is_alive()]
+    for t in left:
+        t.join(timeout=5)
+    left = [t.name for t in left if t.is_alive()]
+    if left:
+        fail(f"[durability] threads of the closed node still run: {left}")
+    print(f"[durability] leg a: {row['churn']['persist_us_per_dirty_key']:.1f}"
+          f" µs a dirty key; {len(want)} keys read equal to the tape; "
+          f"closed, {row['memory_after_close'] - mem0} B left on the card",
+          flush=True)
+    return row, want
+
+
+def durable_restart(d):
+    """A new ``AntidoteGPU`` over ``d`` on the card under torch.profiler:
+    (db, restart seconds, device ms, launches, seeded keys)."""
+    seeded0 = stats.registry.ckpt_seed_device_keys.value()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        db = AntidoteGPU(dc_id="dc1", config=durable_config(), data_dir=d)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    ops = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in ops) / 1e3
+    launches = sum(e.count for e in ops if e.self_device_time_total > 0)
+    seeded = stats.registry.ckpt_seed_device_keys.value() - seeded0
+    return db, dt, device_ms, launches, seeded
+
+
+def resident_share(db, keys):
+    """Per type, the share of ``keys`` the card serves after the restart
+    (config 13's ``ckpt_restart_device_resident_pct``): owned by the
+    partition's plane and not pinned to the host."""
+    out = {}
+    for tn in DURABLE_TYPES:
+        ks = [k for k, t in keys if t == tn]
+        res = 0
+        for k in ks:
+            dev = db.node.partition_of(k).device
+            res += dev.owns(tn, k) and k not in dev.host_only
+        out[tn] = 100.0 * res / len(ks)
+    return out
+
+
+def durable_oracle(src, keys, vc):
+    """config 13's host full-scan oracle: the port's Node with no device
+    store and no checkpoint, over a copy of ``src`` whose checkpoint
+    files are removed.  Returns (values, seconds)."""
+    from antidote_tpu_torch.oplog.checkpoint import delete_checkpoint_files
+    from antidote_tpu_torch.txn.node import Node
+
+    t0 = time.perf_counter()
+    for dpath, _, fs in os.walk(src):
+        for f in fs:
+            if f.endswith(".ckpt"):
+                delete_checkpoint_files(os.path.join(dpath, f))
+    node = Node(dc_id="dc1", config=Config(
+        n_partitions=DURABLE["n_partitions"], device_store=False,
+        ckpt=False), data_dir=src, device="cpu")
+    api = AntidoteGPU(node=node)
+    try:
+        got = read_at(api, keys, vc)
+    finally:
+        api.close()
+    return got, time.perf_counter() - t0
+
+
+def phase_durability(device, leg_b_rate=None):
+    """Phase 16: a checkpoint-seeded restart of phase 11 leg b's
+    deployment on ``device``.  Returns its row."""
+    errors = ErrorRecords()
+    port_log = logging.getLogger("antidote_tpu_torch")
+    port_log.addHandler(errors)
+    root = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    d, oracle_dir = os.path.join(root, "node"), os.path.join(root, "oracle")
+    shp, K = DURABLE, DURABLE["keys"]
+    keys = durable_keys(K)
+    tape = TxnTape()
+    try:
+        t0 = time.perf_counter()
+        row = dict(source=shp["source"], reduced=shp["reduced"],
+                   partitions=shp["n_partitions"], keys_per_type=K,
+                   key_capacity=shp["key_capacity"])
+        row["a"], want = durable_leg_a(d, K, tape)
+        errors.check("phase 16 leg a")
+        shutil.copytree(d, oracle_dir)
+
+        db, restart_s, dev_ms, launches, seeded = durable_restart(d)
+        try:
+            with device_read_timers(db):
+                txn_planes(db, "cuda")
+                resident = resident_share(db, keys)
+                b = dict(restart_s=restart_s, device_ms=dev_ms,
+                         busy_share=dev_ms / (restart_s * 1e3),
+                         launches=launches, ckpt_seed_device_keys=seeded,
+                         resident_pct=resident)
+                print(f"[durability] leg b: restart {restart_s:.2f} s, "
+                      f"{seeded} keys seeded on the card, resident "
+                      f"{resident}, busy {b['busy_share']:.4f}, "
+                      f"{launches} launches", flush=True)
+                if seeded == 0:
+                    fail("[durability] the restart seeded no key on the "
+                         "card")
+                if any(v < 100.0 for v in resident.values()):
+                    fail(f"[durability] resident share below 100 %: "
+                         f"{resident}")
+                got = check_tape("phase 16 leg b", db, tape, keys)
+                bad = [k for k in keys if got[k] != want[k]]
+                if bad:
+                    fail(f"[durability] {len(bad)} keys differ from "
+                         f"before the close, first {bad[0]}: "
+                         f"{got[bad[0]]!r} against {want[bad[0]]!r}")
+                oracle, b["oracle_s"] = durable_oracle(oracle_dir, keys,
+                                                       tape.vc)
+                bad = [k for k in keys if oracle[k] != got[k]]
+                if bad:
+                    fail(f"[durability] {len(bad)} keys differ from the "
+                         f"host full-scan oracle, first {bad[0]}: "
+                         f"{got[bad[0]]!r} against {oracle[bad[0]]!r}")
+                touched = set()
+                dt, lat, aborts = txn_mix(db, shp["threads"], shp["txns"],
+                                          K, 162, tape, touched)
+                b["mix"] = dict(txn_per_s=len(lat) / dt, aborts=aborts,
+                                committed=len(lat),
+                                p50_ms=float(np.percentile(lat, 50)) * 1e3,
+                                p99_ms=float(np.percentile(lat, 99)) * 1e3,
+                                phase11_leg_b_txn_per_s=leg_b_rate)
+                check_tape("phase 16 after the restart", db, tape, touched)
+                b["checked_keys"] = dict(all=len(keys),
+                                         after_mix=len(touched))
+        finally:
+            db.close()
+        row["b"] = b
+        errors.check("phase 16 leg b")
+        if foreign_modules():
+            fail(f"[durability] modules of jax or the JAX package loaded: "
+                 f"{foreign_modules()[:5]}")
+        row["seconds"] = time.perf_counter() - t0
+        print(f"[durability] leg b: {len(keys)} keys equal before the close"
+              f", after the restart and in the full-scan oracle; restarted "
+              f"node {b['mix']['txn_per_s']:.0f} txn/s (phase 11 leg b: "
+              f"{leg_b_rate}); {len(touched)} touched keys equal the tape;"
+              f" phase 16 {row['seconds']:.1f} s", flush=True)
+    finally:
+        port_log.removeHandler(errors)
+        shutil.rmtree(root, ignore_errors=True)
+    return row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
                                  "one GPU (the module's docstring).")
@@ -5548,6 +5926,9 @@ def main(argv=None):
     ap.add_argument("--mesh-only", action="store_true",
                     help="run phases 1, 2 and 15 (the mesh as eight "
                     "shards on the card) only")
+    ap.add_argument("--durability-only", action="store_true",
+                    help="run phases 1, 2 and 16 (a checkpoint-seeded "
+                    "restart on the card) only")
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of an earlier commit whose fixpoint "
                     "wrapper phase 10 times in turns with this one")
@@ -5579,11 +5960,12 @@ def main(argv=None):
         print(f"[build] ptxas:\n{report}", flush=True)
 
     rows = []
-    only = [o for o in ("gate", "txn", "multidc", "cluster", "pb", "mesh")
-            if getattr(args, f"{o}_only")]
+    only = [o for o in ("gate", "txn", "multidc", "cluster", "pb", "mesh",
+                        "durability") if getattr(args, f"{o}_only")]
     if len(only) > 1:
         ap.error("at most one of --gate-only, --txn-only, --multidc-only, "
-                 "--cluster-only, --pb-only, --mesh-only")
+                 "--cluster-only, --pb-only, --mesh-only, "
+                 "--durability-only")
     everything = not only
     if everything:
         t0 = time.perf_counter()
@@ -5622,6 +6004,10 @@ def main(argv=None):
         pb = phase_pb(device)
     if everything or args.mesh_only:
         mesh = phase_mesh(device)
+    if everything or args.durability_only:
+        durability = phase_durability(
+            device, txn["b"]["threads_8"]["txn_per_s"] if everything
+            else None)
     if everything:
         print(json.dumps({"types": types}))
         print(json.dumps({"plane": plane}))
@@ -5637,6 +6023,8 @@ def main(argv=None):
         print(json.dumps({"pb": pb}))
     if everything or args.mesh_only:
         print(json.dumps({"mesh": mesh}))
+    if everything or args.durability_only:
+        print(json.dumps({"durability": durability}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -28,13 +28,9 @@ it."""
 import os
 
 import pytest
-import torch
 
 from antidote_tpu_torch import runtime
-from antidote_tpu_torch.cluster import node as tnode_mod
-from antidote_tpu_torch.interdc import dc as tdc_mod
 from antidote_tpu_torch.obs.spans import tracer as ttracer
-from antidote_tpu_torch.txn import node as txnode_mod
 
 import torch_refexec as rx
 
@@ -49,30 +45,24 @@ CASES = [(rel, qual, params) for rel in FILES
 LOADER = rx.Loader(port=True)
 
 
-def _cpu(device=None):
-    return torch.device("cpu" if device is None else device)
-
-
 @pytest.fixture(autouse=True)
 def _on_the_cpu(monkeypatch):
-    """The reference code passes no device: every port node and DC it
-    builds sits on the CPU; its tracer samples nothing."""
-    monkeypatch.setattr(txnode_mod, "resolve_device", _cpu)
-    monkeypatch.setattr(tnode_mod, "resolve_device", _cpu)
-    monkeypatch.setattr(tdc_mod, "resolve_device", _cpu)
+    """The reference code passes no device: everything it builds sits
+    on the CPU; its tracer samples nothing."""
+    rx.port_on_the_cpu(monkeypatch)
     monkeypatch.setattr(ttracer, "sample_rate", 0.0)
 
 
 @pytest.mark.parametrize("rel,qual,params", CASES,
                          ids=[rx.case_id(*c) for c in CASES])
 def test_reference_case_on_the_port(rel, qual, params, tmp_path,
-                                    monkeypatch, capsys):
+                                    monkeypatch, request):
     prev = runtime.set_mesh_devices(
         ["cpu"] * 8 if rel in MESHED else None)
     try:
         _jax, port_rec = rx.run_on_both(
             (None, LOADER), rel, qual, params, tmp_path, monkeypatch,
-            jax=False, given={"capsys": capsys})
+            jax=False, request=request)
     finally:
         runtime.set_mesh_devices(prev)
     rx.assert_finals(None, port_rec, False)

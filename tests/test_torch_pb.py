@@ -230,7 +230,7 @@ class _Responses:
 @pytest.mark.parametrize("rel,qual,params", CASES,
                          ids=[rx.case_id(*c) for c in CASES])
 def test_reference_case_on_both(rel, qual, params, tmp_path, monkeypatch,
-                                capsys):
+                                request):
     compared = rx.case_id(rel, qual, params) in COMPARED
     got = []
     for port, client_mod in enumerate((jclient, tclient)):
@@ -239,7 +239,7 @@ def test_reference_case_on_both(rel, qual, params, tmp_path, monkeypatch,
         rec = _Responses(client_mod, LOADERS[port], monkeypatch)
         rx.run_case(LOADERS[port].module(rel), rel, qual, params,
                     tmp_path / ("port" if port else "jax"), monkeypatch,
-                    {"capsys": capsys}, LOADERS[port])
+                    LOADERS[port], request)
         got.append(rec.got)
     if compared:
         assert got[0] and got[0] == got[1]

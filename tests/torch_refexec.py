@@ -24,6 +24,16 @@ raised;
 for a compared case both packages committed the same updates in the
 same order from the case's own thread and read equal values, and
 otherwise each package's DCs read the same values.
+
+Parametrize values and fixture ``params`` are evaluated as pytest
+evaluates them: a literal as it stands, any other expression (``range``,
+arithmetic, a module constant computed at import) in the module the
+loader executed.  A case's autouse fixtures run before it; pytest's own
+fixtures (``caplog``, ``capsys``) come from the calling test's
+``request``.  For the port a bare ``import jax`` inside a case names
+:data:`PORT_JAX`, whose ``devices()`` is the port's mesh devices, so no
+port half loads jax; :func:`port_on_the_cpu` points every port module's
+``resolve_device`` at the CPU.
 """
 
 from __future__ import annotations
@@ -32,7 +42,9 @@ import ast
 import inspect
 import numbers
 import os
+import pkgutil
 import re
+import sys
 import threading
 import time
 import types
@@ -45,6 +57,12 @@ _IMPORT = re.compile(r"^(\s*(?:from|import) )antidote_tpu\b")
 _FIXTURE = re.compile(r"^\s*@pytest\.fixture\b.*$")
 _FROM_TESTS = re.compile(
     r"^(\s*)from (\.|tests\.[\w.]+\.)(\w+) import ([\w, ]+?)\s*$")
+#: the first line of a parenthesized ``from tests.<...> import (``
+_FROM_TESTS_OPEN = re.compile(
+    r"^(\s*from (?:\.|tests\.[\w.]+\.)\w+ import )\(\s*$")
+#: a case's own ``import jax`` (tests/unit/test_fused_read.py counts
+#: ``jax.devices()``)
+_IMPORT_JAX = re.compile(r"^(\s*)import jax\s*$")
 #: name prefixes of a DC's own background threads that commit through
 #: the client API (obs/probe.py's causal probe writes and retires its
 #: probe elements): their commits are not the case's, and a final read
@@ -59,18 +77,19 @@ _API_TPU = re.compile(r"^(\s*from antidote_tpu_torch\.api import .*)"
                       r"\bAntidoteTPU\b")
 
 
-def cases(rel):
+def cases(rel, loader=None):
     """(qualified test name, parameter dicts) of every test in a
-    reference file, read from its syntax tree (no import at
-    collection); each parametrized function gives one entry per
-    parameter set, and so does each parameter of a fixture with
-    ``params`` the test names (its value under the fixture's name)."""
+    reference file, read from its syntax tree; each parametrized
+    function gives one entry per parameter set, and so does each
+    parameter of a fixture with ``params`` the test names (its value
+    under the fixture's name).  A value that is neither a literal nor a
+    module-level literal is evaluated in the file's module as ``loader``
+    (by default a port loader) executes it, as pytest evaluates it at
+    import: ``range(6)``, ``10**9``, a list computed at import."""
     with open(os.path.join(REPO, rel), encoding="utf-8") as f:
         tree = ast.parse(f.read())
-    fixture_params = {n.name: p for n, p in _fixture_params(tree)}
-    #: module-level names a parametrize mark may name
-    consts = {t.id: n.value for n in tree.body if isinstance(n, ast.Assign)
-              for t in n.targets if isinstance(t, ast.Name)}
+    value = _evaluator(rel, tree, loader)
+    fixture_params = {n.name: value(p) for n, p in _fixture_params(tree)}
 
     def params(fn):
         out = [{}]
@@ -83,10 +102,7 @@ def cases(rel):
                     and ast.unparse(dec.func) == "pytest.mark.parametrize":
                 names = [n.strip() for n in
                          ast.literal_eval(dec.args[0]).split(",")]
-                vals = dec.args[1]
-                if isinstance(vals, ast.Name):
-                    vals = consts[vals.id]
-                vals = ast.literal_eval(vals)
+                vals = list(value(dec.args[1]))
                 if len(names) == 1:
                     vals = [(v,) for v in vals]
                 out = [dict(o, **dict(zip(names, v)))
@@ -108,6 +124,26 @@ def cases(rel):
     return out
 
 
+def _evaluator(rel, tree, loader):
+    """The value of a parametrize or ``params`` expression of ``rel``:
+    a literal, a module-level name bound to a literal, or else the
+    expression evaluated in the executed module."""
+    #: module-level names a parametrize mark may name
+    consts = {t.id: n.value for n in tree.body if isinstance(n, ast.Assign)
+              for t in n.targets if isinstance(t, ast.Name)}
+    loader = loader or Loader(port=True)
+
+    def value(expr):
+        lit = consts.get(expr.id) if isinstance(expr, ast.Name) else expr
+        try:
+            return ast.literal_eval(lit)
+        except (ValueError, TypeError, SyntaxError):
+            pass
+        return eval(compile(ast.Expression(expr), rel, "eval"),
+                    loader.module(rel).__dict__)
+    return value
+
+
 def case_id(rel, qual, params):
     name = os.path.basename(rel)[:-3]
     if params:
@@ -116,7 +152,8 @@ def case_id(rel, qual, params):
 
 
 def _fixture_params(tree):
-    """(fixture, its ``params`` list) of each fixture with params."""
+    """(fixture, its ``params`` expression) of each fixture with
+    params."""
     for n in tree.body:
         if not isinstance(n, ast.FunctionDef):
             continue
@@ -125,16 +162,26 @@ def _fixture_params(tree):
                     and ast.unparse(d.func) == "pytest.fixture":
                 for kw in d.keywords:
                     if kw.arg == "params":
-                        yield n, ast.literal_eval(kw.value)
+                        yield n, kw.value
 
 
-def fixture_names(rel):
+def fixture_names(rel, autouse=False):
+    """The fixtures a file defines, in their order in the file (with
+    ``autouse``, only those that run for every case)."""
     with open(os.path.join(REPO, rel), encoding="utf-8") as f:
         tree = ast.parse(f.read())
-    return {n.name for n in tree.body
-            if isinstance(n, ast.FunctionDef)
-            and any(ast.unparse(d).startswith("pytest.fixture")
-                    for d in n.decorator_list)}
+    out = []
+    for n in tree.body:
+        if not isinstance(n, ast.FunctionDef):
+            continue
+        decs = [d for d in n.decorator_list
+                if ast.unparse(d).startswith("pytest.fixture")]
+        if decs and (not autouse or any(
+                isinstance(d, ast.Call) and any(
+                    k.arg == "autouse" and ast.literal_eval(k.value)
+                    for k in d.keywords) for d in decs)):
+            out.append(n.name)
+    return out
 
 
 def _conftest(rel):
@@ -164,13 +211,16 @@ class Loader:
         path = os.path.join(REPO, rel)
         here = os.path.dirname(rel)
         with open(path, encoding="utf-8") as f:
-            lines = f.read().split("\n")
+            lines = _join_imports(f.read().split("\n"))
         src = []
         for ln in lines:
             m = _FROM_TESTS.match(ln)
             c = _IMPORT_CAUSAL.match(ln)
+            j = _IMPORT_JAX.match(ln) if self.port else None
             if _FIXTURE.match(ln):
                 ln = ""
+            elif j:
+                ln = f"{j.group(1)}jax = __port_jax__"
             elif m:
                 indent, pkg, mod, names = m.groups()
                 where = here if pkg == "." else pkg[:-1].replace(".", "/")
@@ -191,22 +241,82 @@ class Loader:
             if self.port else path
         mod.__ref_names__ = self._names
         mod.__ref_module__ = self.module
+        mod.__port_jax__ = PORT_JAX
         exec(compile("\n".join(src), path, "exec"), mod.__dict__)
         return mod
 
 
-def run_case(mod, rel, qual, params, tmp_path, monkeypatch, given=None,
-             loader=None):
+def _join_imports(lines):
+    """``lines`` with each parenthesized ``from tests.<...> import (``
+    over several lines put on its first line, the others left blank
+    (line numbers kept)."""
+    out = list(lines)
+    for i, ln in enumerate(out):
+        m = _FROM_TESTS_OPEN.match(ln)
+        if not m:
+            continue
+        names, j = [], i + 1
+        while ")" not in out[j]:
+            names += [n.strip() for n in out[j].split(",") if n.strip()]
+            out[j] = ""
+            j += 1
+        names += [n.strip() for n in out[j].split(")")[0].split(",")
+                  if n.strip()]
+        out[j] = ""
+        out[i] = m.group(1) + ", ".join(names)
+    return out
+
+
+#: the port's stand-in for a case's ``import jax``: only ``devices()``,
+#: the port's mesh devices (every card, or the list
+#: ``runtime.set_mesh_devices`` set)
+PORT_JAX = types.SimpleNamespace(
+    devices=lambda: import_module("antidote_tpu_torch.runtime")
+    .mesh_devices())
+
+
+def port_on_the_cpu(monkeypatch):
+    """Point ``resolve_device`` at the CPU in every module of the port
+    that imported it (each module imported first, found by walking the
+    package), so every node, plane, store and gate a reference case
+    builds without a device sits on the CPU; returns the patched
+    modules' names."""
+    import torch
+
+    pkg = import_module("antidote_tpu_torch")
+    # the entry points first: bcounter alone meets interdc's cycle
+    import_module("antidote_tpu_torch.interdc")
+    import_module("antidote_tpu_torch.cluster")
+    for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        if not m.name.endswith("__main__"):
+            import_module(m.name)
+    orig = pkg.resolve_device
+
+    def cpu(device=None):
+        return torch.device("cpu" if device is None else device)
+
+    out = []
+    for name, mod in list(sys.modules.items()):
+        if name.split(".")[0] == pkg.__name__ \
+                and getattr(mod, "resolve_device", None) is orig:
+            monkeypatch.setattr(mod, "resolve_device", cpu)
+            out.append(name)
+    return sorted(out)
+
+
+def run_case(mod, rel, qual, params, tmp_path, monkeypatch, loader=None,
+             request=None):
     """Run one reference case from its executed module: fixtures of
     the file (and, with ``loader``, of the conftest.py beside it, from
     that loader) are called as plain functions and their generators
     finished after the case; a fixture with ``params`` gets a
-    ``request`` whose ``param`` is the case's.  ``given`` maps pytest's
-    own fixtures the caller passes on (``capsys``) to their values."""
+    ``request`` whose ``param`` is the case's.  Any other name comes
+    from the calling test's ``request`` (pytest's own ``capsys`` and
+    ``caplog``).  The file's autouse fixtures (and its conftest's) run
+    first, as pytest runs them."""
     fixtures = fixture_names(rel)
     conf = _conftest(rel) if loader is not None else None
-    conf_fixtures = fixture_names(conf) if conf else set()
-    given = given or {}
+    conf_fixtures = fixture_names(conf) if conf else []
     cls_name, _, fn_name = qual.rpartition(".")
     owner = getattr(mod, cls_name)() if cls_name else None
     fn = getattr(owner, fn_name) if owner else getattr(mod, fn_name)
@@ -218,8 +328,6 @@ def run_case(mod, rel, qual, params, tmp_path, monkeypatch, given=None,
                 made[param] = tmp_path
             elif param == "monkeypatch":
                 made[param] = monkeypatch
-            elif param in given:
-                made[param] = given[param]
             elif param in params and param not in fixtures:
                 made[param] = params[param]
             else:
@@ -227,10 +335,14 @@ def run_case(mod, rel, qual, params, tmp_path, monkeypatch, given=None,
                     fix = getattr(mod, param)
                 elif param in conf_fixtures:
                     fix = getattr(loader.module(conf), param)
+                elif request is not None:
+                    made[param] = request.getfixturevalue(param)
+                    return made[param]
                 else:
                     raise LookupError(f"{rel}: no fixture {param!r}")
-                request = types.SimpleNamespace(param=params.get(param))
-                value = fix(*[request if p == "request" else get(p)
+                fix_request = types.SimpleNamespace(
+                    param=params.get(param))
+                value = fix(*[fix_request if p == "request" else get(p)
                               for p in inspect.signature(fix).parameters])
                 if inspect.isgenerator(value):
                     teardowns.append(value)
@@ -239,6 +351,9 @@ def run_case(mod, rel, qual, params, tmp_path, monkeypatch, given=None,
         return made[param]
 
     try:
+        for auto in (fixture_names(conf, autouse=True) if conf else []) \
+                + fixture_names(rel, autouse=True):
+            get(auto)
         fn(*[get(p) for p in inspect.signature(fn).parameters])
     finally:
         for gen in reversed(teardowns):
@@ -247,11 +362,14 @@ def run_case(mod, rel, qual, params, tmp_path, monkeypatch, given=None,
 
 
 def run_on_both(loaders, rel, qual, params, tmp_path, monkeypatch,
-                jax=True, given=None):
+                jax=True, request=None):
     """Run one reference case on the JAX package (unless ``jax`` is
     false: the reference file's own test runs that half in the same
-    suite), then on the port, each from its loader's module; returns
-    the two recorders, None for a half not run."""
+    suite), then on the port, each from its loader's module and in its
+    own subdirectory of ``tmp_path`` (made here, as pytest makes
+    ``tmp_path``); returns the two recorders, None for a half not run.
+    A recorder that saw commits after its last snapshot, with an
+    endpoint the case left open, reads once more when the case ends."""
     recs = []
     for port in range(2):
         if not port and not jax:
@@ -259,9 +377,12 @@ def run_on_both(loaders, rel, qual, params, tmp_path, monkeypatch,
             continue
         pkg = ("antidote_tpu", "antidote_tpu_torch")[port]
         rec = Recorder(pkg, monkeypatch)
-        run_case(loaders[port].module(rel), rel, qual, params,
-                 tmp_path / ("port" if port else "jax"), monkeypatch,
-                 given, loaders[port])
+        where = tmp_path / ("port" if port else "jax")
+        where.mkdir(parents=True, exist_ok=True)
+        run_case(loaders[port].module(rel), rel, qual, params, where,
+                 monkeypatch, loaders[port], request)
+        if rec.fresh and rec.live:
+            rec.snapshot()
         recs.append(rec)
     return recs
 
@@ -391,10 +512,17 @@ class Recorder:
 
         def own_node(self, a, k):
             """A client API object the case built over a node of its
-            own (not a DataCenter, nor the API a NodeServer or a
-            federated member builds over its node)."""
-            return type(self) is api_cls \
-                and k.get("node", a[3] if len(a) > 3 else None) is None
+            own: one built without a node, or one the case's own code
+            built over a ``Node`` it made (not a DataCenter, nor the
+            API a NodeServer or a federated member builds over its
+            node)."""
+            if type(self) is not api_cls:
+                return False
+            if k.get("node", a[3] if len(a) > 3 else None) is None:
+                return True
+            # new_init's caller: the code that called the constructor
+            caller = sys._getframe(2).f_globals.get("__name__", "")
+            return caller.startswith("ref_")
 
         for cls, endpoint in ((dc_cls, None), (srv_cls, None),
                               (api_cls, own_node)):
