@@ -21,6 +21,8 @@ import sys
 import threading
 from pathlib import Path
 
+from antidote_tpu_torch.native.build import publish
+
 _HERE = Path(__file__).resolve().parent
 _SOURCES = sorted((_HERE / "csrc").glob("*.cu"))
 _BUILD_DIR = _HERE / "_cuda_build"
@@ -81,7 +83,7 @@ def build() -> str | None:
         names = ", ".join(s.name for s in _SOURCES)
         raise RuntimeError(f"nvcc failed for {names} (exit "
                            f"{proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, path)
+    publish(str(tmp), str(path))
     return "\n".join(ln for ln in proc.stdout.splitlines()
                      if "ptxas info" in ln or "bytes stack frame" in ln)
 
@@ -92,6 +94,8 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
+            # lock-ok: the lock exists to serialise this process's build
+            # and load of the library; nothing else takes it
             report = build()
             if report is not None:
                 names = ", ".join(s.name for s in _SOURCES)

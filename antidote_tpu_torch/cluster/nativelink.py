@@ -73,6 +73,8 @@ def _load() -> Optional["_Lib"]:
             return _lib
         from antidote_tpu_torch.native.build import ensure_built
 
+        # lock-ok: the lock exists to build and load the library once
+        # a process; nothing else takes it
         path = ensure_built("nodelink")
         if path is None:
             return None

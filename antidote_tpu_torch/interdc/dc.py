@@ -484,6 +484,9 @@ class DataCenter(AntidoteGPU):
                 # the gates assume one writer: the delivery worker
                 # drives them under _rx_lock, and so does this fill
                 with self._rx_lock:
+                    # lock-ok: the gate's single writer, as in the
+                    # delivery worker; its ring sync is a host-mirror
+                    # upload, not a durability barrier
                     self.dep_gates[p].enqueue_batch(fresh)
 
     def observe_dcs_sync(self, descs: List[DcDescriptor],

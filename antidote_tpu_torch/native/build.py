@@ -46,5 +46,20 @@ def ensure_built(name: str) -> str | None:
             subprocess.run(cmd, check=True, capture_output=True)
         except (FileNotFoundError, subprocess.CalledProcessError):
             return None
-        os.replace(tmp, out)
+        # lock-ok: the lock exists to serialise this process's builds;
+        # nothing else takes it
+        publish(tmp, out)
         return out
+
+
+def publish(tmp: str, out: str) -> None:
+    """Renames a finished build into place, its bytes fsynced before the
+    rename and the directory after it: a crash never leaves a torn
+    library under the final name, which a later start would take as
+    built (this build and the CUDA kernels' in ``_cuda.py``)."""
+    from antidote_tpu_torch.oplog.log import _fsync_dir
+
+    with open(tmp, "rb") as f:
+        os.fsync(f.fileno())
+    os.replace(tmp, out)
+    _fsync_dir(os.path.dirname(out), instant="build_dir_fsync")

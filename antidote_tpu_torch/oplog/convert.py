@@ -41,6 +41,7 @@ import shutil
 import zlib
 from typing import Dict, List, Tuple
 
+from antidote_tpu_torch.obs.spans import tracer
 from antidote_tpu_torch.oplog import checkpoint as ck
 from antidote_tpu_torch.oplog.log import (
     _HEADER,
@@ -82,10 +83,12 @@ def _record(raw: bytes) -> bytes:
 
 
 def _write(path: str, raw: bytes) -> None:
-    with open(path, "wb") as f:
-        f.write(raw)
-        f.flush()
-        os.fsync(f.fileno())
+    with tracer.span("convert_write", "oplog",
+                     path=os.path.basename(path), bytes=len(raw)):
+        with open(path, "wb") as f:
+            f.write(raw)
+            f.flush()
+            os.fsync(f.fileno())
 
 
 def _convert_log(src: str, dst: str) -> Tuple[int, Dict[int, int]]:
@@ -166,7 +169,10 @@ def _convert_ckpt(src: str, dst: str, moved: Dict[int, int],
             segments.append((name, len(entries), len(raw)))
             names.append(name)
         doc["segments"] = segments
-    ck.CheckpointStore(dst, ck.CheckpointSettings()).write_doc(doc)
+    with tracer.span("convert_ckpt", "oplog", path=os.path.basename(dst)):
+        # lock-ok: a converter writes one document through the store's
+        # framing; its settings come from the factory's defaults
+        ck.CheckpointStore(dst, ck.ckpt_from_config(None)).write_doc(doc)
     return names
 
 

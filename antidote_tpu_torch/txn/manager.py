@@ -90,18 +90,27 @@ class DeviceFlusher:
             item = self._q.get()
             if item is None:
                 return
-            key, pm, plane = item
-            with self._lock:
-                self._queued.discard(key)
-            try:
-                with pm._lock:
-                    pm._wait_device_quiesce()
-                    plane.flush_gc_now()
-            except Exception:  # noqa: BLE001 — the drain must not die
-                import logging as _logging
+            self._flush_one(*item)
+            # the waiting frame must not keep the last partition flushed
+            # reachable: a ring resize drops it, and its planes hold
+            # device memory until every reference dies
+            del item
 
-                _logging.getLogger(__name__).exception(
-                    "background device flush failed")
+    def _flush_one(self, key, pm: "PartitionManager", plane) -> None:
+        with self._lock:
+            self._queued.discard(key)
+        try:
+            with pm._lock:
+                pm._wait_device_quiesce()
+                # lock-ok: the flusher's contract: the flush runs under
+                # the partition lock with readers quiesced, its device
+                # sync included
+                plane.flush_gc_now()
+        except Exception:  # noqa: BLE001 — the drain must not die
+            import logging as _logging
+
+            _logging.getLogger(__name__).exception(
+                "background device flush failed")
 
     def stop(self) -> None:
         with self._lock:

@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py [--gate-only | --txn-only | --multidc-only |
                            --cluster-only | --pb-only | --mesh-only |
-                           --durability-only] [--parent DIR]
+                           --durability-only | --elastic-only]
+                          [--parent DIR]
 
 ``--gate-only`` runs phases 1, 2 and 10 alone, ``--txn-only`` phases 1,
 2 and 11, ``--multidc-only`` phases 1, 2 and 12, ``--cluster-only``
 phases 1, 2 and 13, ``--pb-only`` phases 1, 2 and 14, ``--mesh-only``
-phases 1, 2 and 15, ``--durability-only`` phases 1, 2 and 16;
+phases 1, 2 and 15, ``--durability-only`` phases 1, 2 and 16,
+``--elastic-only`` phases 1, 2 and 17;
 ``--parent DIR`` imports
 the fixpoint wrapper (``ring_fixpoint``) of another checkout at DIR, an
 earlier commit, from its own package and sources, and phase 10 times
@@ -303,9 +305,38 @@ Phases, each of which fails the run on any error or mismatch:
    launches over the restart, keys seeded on the card, resident %,
    txn/s before the cut and after the restart beside phase 11 leg b's.
 
+17. The elastic keyspace (``ELASTIC``).  Leg a: phase 16's node (its
+   configuration, 65,536 keys a type) filled, cut, churned (config 13's
+   32 dirty keys a partition), closed (its copy is the host oracle's)
+   and restarted, then ``repartition_live`` from 16 to 32 partitions
+   while config 17's 8 writer threads increment 64 counters (a
+   TimeoutError or an abort is a retry; any other error fails the run),
+   under torch.profiler; every object of the old ring (partition
+   managers, planes, type planes) must be unreachable after the
+   cutover, no device-resident key may be seeded on the host, both
+   types must stay 100 % resident, every key must equal the tape and the
+   host full-scan oracle (the closed copy replayed with the writers'
+   increments), and the closed node must leave nothing on the card.
+   Leg b: config 17's seeded resize bar (2 -> 4 partitions, keyspaces 40
+   and 2,000, 512 B registers) through the port's ``Node`` with its
+   planes on the card: every slot equal to the full-history fold of a
+   byte copy, the large leg within 1.5 x the small leg's ms a moved key
+   + 3 ms.  Leg c: phase 13's four data-node processes and two clients;
+   a cut on every partition, ``resize_cluster(16)`` under one client's
+   mix, a fifth data node taking one partition of each of the four by
+   ``rebalance`` (checkpoint segments shipped), every touched key read
+   at its new owner through both clients.  Printed: the resize's
+   seconds, ms a moved key, the cutover's ms, commits, retries and the
+   commit p99 across the resize, seeds on the card and the host,
+   resident shares, device memory before the resize, after the cutover
+   and after the close, the busy share; leg b's ms a moved key against
+   its bound; leg c's resize and handoff seconds, segment bytes, txn/s
+   before and after, peak memory a process.
+
 The line before the last carries the nvidia-smi reading, the ones before
-it the ``kernels``, ``durability``, ``mesh``, ``pb``, ``cluster``,
-``multidc``, ``txn``, ``gate``, ``plane`` and ``types`` JSON objects;
+it the ``kernels``, ``elastic``, ``durability``, ``mesh``, ``pb``,
+``cluster``, ``multidc``, ``txn``, ``gate``, ``plane`` and ``types`` JSON
+objects;
 the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside it, the script exits non-zero and prints
@@ -329,6 +360,7 @@ import tempfile
 import threading
 import time
 import warnings
+import weakref
 from collections import Counter, deque
 from contextlib import contextmanager, nullcontext
 from dataclasses import fields, replace
@@ -2367,6 +2399,7 @@ class TxnTape:
             self.vc = self.vc.join(vc)
             if c_key is not None:
                 self.counter[c_key] = self.counter.get(c_key, 0) + 1
+            if s_key is not None:
                 self.sets.setdefault(s_key, set()).add(elem)
 
     def expected(self, key, type_name):
@@ -3528,14 +3561,17 @@ def child_serve(handlers):
 
 
 def child_mix(api, txns, threads, keys, seed, tag, remote=None,
-              remote_frac=0.0):
+              remote_frac=0.0, retry_timeouts=False):
     """Config 6's mix (txn_mix's draws) on ``threads`` client threads of
     ``txns // threads`` transactions over ``api``; with ``remote``
     (a callable giving the counter key another DC wrote last, or
     None), ``remote_frac`` of them first read it at the DC's own
-    snapshot.  Returns the committed txns' latencies (ms), the aborts,
-    the wall seconds, every committed update and the join of the
-    commit VCs."""
+    snapshot.  With ``retry_timeouts`` a TimeoutError (a resize's frozen
+    gate) counts as an abort.  Returns the committed txns' latencies
+    (ms), the aborts, the wall seconds, every committed update and the
+    join of the commit VCs."""
+    retry = (TransactionAborted, TimeoutError) if retry_timeouts \
+        else TransactionAborted
     lock = threading.Lock()
     lat, tape, aborts, vcs = [], [], [0], [VC()]
 
@@ -3566,7 +3602,7 @@ def child_mix(api, txns, threads, keys, seed, tag, remote=None,
                         (f"c{rng.integers(0, keys)}", "counter_pn",
                          "bucket")], tx)
                 vc = api.commit_transaction(tx)
-            except TransactionAborted:
+            except retry:
                 with lock:
                     aborts[0] += 1
                 continue
@@ -3669,14 +3705,24 @@ def child_node(argv):
 
     def report():
         srv = server()
+        reg = stats.registry
         return state.report(
             node=None if srv is None else srv.node_id,
             fabric=None if srv is None else srv.fabric_kind(),
             planes=planes_on(local()),
-            read_dispatches=stats.registry.read_dispatches.value())
+            partitions=[pm.partition for pm in local()],
+            read_dispatches=reg.read_dispatches.value(),
+            stream_seg_bytes=reg.stream_seg_bytes.value(),
+            stream_seg_fetches=reg.stream_seg_fetches.value())
+
+    def checkpoint():
+        cut = [pm.checkpoint_now() is not None for pm in local()]
+        if not all(cut):
+            raise RuntimeError("a partition cut no checkpoint")
+        return {"cut": len(cut)}
 
     threading.Thread(target=child_serve, daemon=True, args=(dict(
-        report=report,
+        report=report, checkpoint=checkpoint,
         clear_caches=lambda: {"cleared": clear_caches(local())},
         prof_start=state.prof_start, prof_stop=state.prof_stop),)).start()
     sys.argv = ["antidote_tpu_torch.cluster"] + argv
@@ -3724,11 +3770,18 @@ def child_client(node_id, data_dir, device):
                             clients=list(clients))
         return {"ok": True}
 
-    def run(txns, threads, keys, seed):
+    def run(txns, threads, keys, seed, retry_timeouts=False):
         r0 = sum(rpcs.values())
-        out = child_mix(srv.api, txns, threads, keys, seed, node_id)
+        out = child_mix(srv.api, txns, threads, keys, seed, node_id,
+                        retry_timeouts=retry_timeouts)
         out["rpcs"] = sum(rpcs.values()) - r0
         return out
+
+    def timed(fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        return {"seconds": time.perf_counter() - t0,
+                "ring": {str(p): o for p, o in (out or {}).items()}}
 
     def exit_():
         srv.close()
@@ -3739,6 +3792,13 @@ def child_client(node_id, data_dir, device):
                "fabric": srv.fabric_kind()})
     child_serve(dict(
         join=join, run=run,
+        resize=lambda new_n: timed(srv.resize_cluster, new_n),
+        add_member=lambda node_id, addr: timed(srv.add_member, node_id,
+                                               tuple(addr)),
+        rebalance=lambda ring: timed(srv.rebalance, {
+            int(p): o for p, o in ring.items()}),
+        ring=lambda: {"ring": {str(p): o
+                               for p, o in srv.node.ring.items()}},
         read=lambda keys, clock: child_read(
             srv.api, [tuple(k) for k in keys], clock),
         report=lambda: state.report(node=node_id, fabric=srv.fabric_kind()),
@@ -5803,10 +5863,12 @@ def resident_share(db, keys):
     return out
 
 
-def durable_oracle(src, keys, vc):
+def durable_oracle(src, keys, vc, updates=()):
     """config 13's host full-scan oracle: the port's Node with no device
     store and no checkpoint, over a copy of ``src`` whose checkpoint
-    files are removed.  Returns (values, seconds)."""
+    files are removed, each batch of ``updates`` committed on it before
+    the read (at ``vc`` joined with their commit VCs).  Returns (values,
+    seconds)."""
     from antidote_tpu_torch.oplog.checkpoint import delete_checkpoint_files
     from antidote_tpu_torch.txn.node import Node
 
@@ -5820,6 +5882,8 @@ def durable_oracle(src, keys, vc):
         ckpt=False), data_dir=src, device="cpu")
     api = AntidoteGPU(node=node)
     try:
+        for ups in updates:
+            vc = vc.join(api.update_objects_static(None, ups))
         got = read_at(api, keys, vc)
     finally:
         api.close()
@@ -5908,6 +5972,586 @@ def phase_durability(device, leg_b_rate=None):
     return row
 
 
+# ------------------------------------------ phase 17: the elastic keyspace
+
+#: phase 17's legs: a live ring resize of phase 16's deployment (a),
+#: config 17's seeded resize bar with the device store on (b), and a
+#: cluster resize and a partition handoff between processes (c)
+ELASTIC = dict(
+    a=dict(new_n=32, writers=8, hot_keys=64, warm_s=0.5, tail_s=0.2,
+           mem_slack=8 << 20,
+           source="phase 16's deployment (durable_config: 16 partitions, "
+                  "device_key_capacity 65,536, config 13's checkpoint "
+                  "settings, benches/config13_ckptseg.py:41-51) at 65,536 "
+                  "keys a type, a base cut, then config 13's churn (32 "
+                  "dirty keys a partition); config 17's live leg "
+                  "(benches/config17_reshard.py:160-215): repartition_live "
+                  "doubling the ring (16 -> 32; config 17: 4 -> 8) under 8 "
+                  "writer threads of counter_pn increments over 64 keys",
+           reduced="config 17's live leg runs device_store=False: here "
+                   "every plane is on the card; keyspace 65,536 a type "
+                   "(phase 16's cut); the node is closed and restarted "
+                   "after the churn so the host oracle has a quiesced "
+                   "copy"),
+    b=dict(small=40, big=2_000, rounds=3, val_bytes=512, churn=32,
+           repeats=3, old_n=2, new_n=4,
+           source="config 17's seeded resize scaling "
+                  "(benches/config17_reshard.py:98-160, _build and "
+                  "_resize_leg) at main's sizes (:320-345): 2 -> 4 "
+                  "partitions, keyspaces 40 and 2,000, 3 history rounds, "
+                  "512 B register_lww values, 32 churn keys, a warm-up "
+                  "leg, 3 repeats of the small leg, the bound 1.5 x the "
+                  "small leg's ms a moved key + 3 ms",
+           reduced="device_store on (the bench: off), the planes on the "
+                   "card; the full-fold oracle host-only, as the bench's"),
+    c=dict(data_nodes=4, partitions=8, new_n=16, keys=2_048, threads=2,
+           warm_txns=60, txns=150, txns_during=300, moves=4,
+           source="phase 13 leg a's processes (CLUSTER: 4 data nodes, 8 "
+                  "partitions, 2,048 keys a type, every node a fresh "
+                  "interpreter on the card, --sync-log) with two "
+                  "coordinator-only clients; tests/cluster/test_resize.py"
+                  ":34 (resize_cluster 8 -> 16 under writes) and "
+                  "tests/cluster/test_handoff.py:41 (a new data node "
+                  "takes partitions under continuous writes)",
+           reduced="2 client threads x 150 txns of config 6's mix a "
+                   "client before and after, 300 on one client during the "
+                   "resize and during the handoffs (phase 13 leg a: 4 x 4 "
+                   "x 1,500); cut from 300 before and after for the whole "
+                   "script's time"))
+
+
+def reachable(refs):
+    """The objects of ``refs`` (weak references) still alive after a
+    collection, by type name."""
+    gc.collect()
+    return sorted(type(r()).__name__ for r in refs if r() is not None)
+
+
+@contextmanager
+def timed_cutover(node, out):
+    """Appends to ``out`` the seconds each ``txn_gate.exclusive`` window
+    of ``node`` lasts (the drain of in-flight txns included): a live
+    resize's cutover."""
+    gate = node.txn_gate
+    plain = gate.exclusive
+
+    @contextmanager
+    def exclusive(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            with plain(*a, **k) as cm:
+                yield cm
+        finally:
+            out.append(time.perf_counter() - t0)
+
+    gate.exclusive = exclusive
+    try:
+        yield
+    finally:
+        del gate.exclusive
+
+
+@contextmanager
+def host_seeds(out):
+    """Counts in ``out`` (by type) every checkpoint seed installed into a
+    partition's host store, not its plane."""
+    from antidote_tpu_torch.mat.host_store import HostStore
+
+    plain = HostStore.seed_state
+
+    def seed_state(self, key, type_name, *a, **k):
+        out[type_name] += 1
+        return plain(self, key, type_name, *a, **k)
+
+    HostStore.seed_state = seed_state
+    try:
+        yield
+    finally:
+        HostStore.seed_state = plain
+
+
+def elastic_writers(db, shp, tape, lat, hot):
+    """config 17's live-leg writers: ``writers`` threads incrementing a
+    counter of ``hot_keys`` until the returned event is set; a commit
+    goes to ``tape``, ``lat`` ((end, seconds)) and ``hot``; a
+    TimeoutError (the cutover's admission) or an abort is a retry, any
+    other error a failed txn.  Returns (stop event, threads, retries,
+    errors)."""
+    stop, lock = threading.Event(), threading.Lock()
+    retries, errs = [0], []
+
+    def writer(tid):
+        rng = random.Random(tid)
+        try:
+            while not stop.is_set():
+                k = f"c{rng.randrange(shp['hot_keys'])}"
+                t0 = time.perf_counter()
+                try:
+                    ct = db.update_objects_static(
+                        None, [((k, "counter_pn", "bucket"), "increment", 1)])
+                except (TimeoutError, TransactionAborted):
+                    with lock:
+                        retries[0] += 1
+                    continue
+                t1 = time.perf_counter()
+                tape.commit(ct, k)
+                with lock:
+                    lat.append((t1, t1 - t0))
+                    hot[k] += 1
+        except BaseException as e:  # noqa: BLE001 — a failed txn
+            errs.append(e)
+
+    threads = [threading.Thread(target=writer, args=(t,), daemon=True)
+               for t in range(shp["writers"])]
+    for t in threads:
+        t.start()
+    return stop, threads, retries, errs
+
+
+def elastic_leg_a(device, root):
+    """Leg a: phase 16's node filled, cut and churned, closed (its copy
+    is the host oracle's), restarted, then ``repartition_live`` to 32
+    partitions under config 17's writers.  Returns its row."""
+    shp, K = ELASTIC["a"], DURABLE["keys"]
+    keys = durable_keys(K)
+    d, oracle_dir = os.path.join(root, "node"), os.path.join(root, "oracle")
+    tape, reg = TxnTape(), stats.registry
+    threads0 = set(threading.enumerate())
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated(device)
+    row = dict(source=shp["source"], reduced=shp["reduced"],
+               partitions=[DURABLE["n_partitions"], shp["new_n"]],
+               keys_per_type=K, writers=shp["writers"],
+               hot_keys=shp["hot_keys"])
+    db = AntidoteGPU(dc_id="dc1", config=durable_config(), data_dir=d,
+                     device=device)
+    try:
+        txn_planes(db, device.type)
+        t0 = time.perf_counter()
+        txn_fill(db, K, tape, read_back=False)
+        row["fill_s"] = time.perf_counter() - t0
+        base_s, base_dirty, base_card, _ = ckpt_cut(db)
+        row["base_cut"] = dict(seconds=base_s, keys=base_dirty,
+                               folded_on_card=base_card,
+                               folded_on_host=base_dirty - base_card)
+        pairs = churn_keys(db, K)
+        ct = db.update_objects_static(None, [
+            u for c, s in pairs
+            for u in (((c, "counter_pn", "bucket"), "increment", 1),
+                      ((s, "set_aw", "bucket"), "add", b"churn"))])
+        for c, s in pairs:
+            tape.commit(ct, c, s, b"churn")
+        row["churn_keys"] = 2 * len(pairs)
+    finally:
+        db.close()
+    del db
+    shutil.copytree(d, oracle_dir)
+    vc_closed = tape.vc
+    print(f"[elastic] leg a: fill {row['fill_s']:.1f} s, base cut "
+          f"{base_s:.2f} s ({base_card} of {base_dirty} keys folded on the "
+          f"card), {row['churn_keys']} churn keys", flush=True)
+
+    t0 = time.perf_counter()
+    db = AntidoteGPU(dc_id="dc1", config=durable_config(), data_dir=d,
+                     device=device)
+    try:
+        row["restart_s"] = time.perf_counter() - t0
+        txn_planes(db, device.type)
+        old = [weakref.ref(x) for pm in db.node.partitions
+               for x in (pm, pm.device, *pm.device.planes.values())]
+        torch.cuda.synchronize(device)
+        gc.collect()
+        row["memory_before_resize"] = torch.cuda.memory_allocated(device)
+        lat, hot, cut, hosted = [], Counter(), [], Counter()
+        seeded0 = reg.ckpt_seed_device_keys.value()
+        moved0 = reg.reshard_moved_keys.value()
+        with timed_cutover(db.node, cut), host_seeds(hosted), \
+                torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            stop, threads, retries, errs = elastic_writers(
+                db, shp, tape, lat, hot)
+            time.sleep(shp["warm_s"])
+            r0 = time.perf_counter()
+            db.node.repartition_live(shp["new_n"])
+            r1 = time.perf_counter()
+            time.sleep(shp["tail_s"])
+            stop.set()
+            for t in threads:
+                t.join(timeout=60)
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - w0
+        if any(t.is_alive() for t in threads):
+            fail("[elastic] leg a: a writer wedged across the cutover")
+        if errs:
+            fail(f"[elastic] leg a: {len(errs)} failed txns, first "
+                 f"{type(errs[0]).__name__}: {errs[0]}")
+        if db.node.config.n_partitions != shp["new_n"] or \
+                len(db.node.partitions) != shp["new_n"]:
+            fail(f"[elastic] leg a: {len(db.node.partitions)} partitions "
+                 f"after the resize")
+        if len(cut) != 1:
+            fail(f"[elastic] leg a: {len(cut)} cutover windows")
+        ops = prof.key_averages()
+        device_ms = sum(e.self_device_time_total for e in ops) / 1e3
+        alive = reachable(old)
+        if alive:
+            fail(f"[elastic] leg a: {len(alive)} objects of the old ring "
+                 f"still reachable after the cutover: {alive[:6]}")
+        torch.cuda.synchronize(device)
+        row["memory_after_cutover"] = torch.cuda.memory_allocated(device)
+        moved = int(reg.reshard_moved_keys.value() - moved0)
+        seeded = int(reg.ckpt_seed_device_keys.value() - seeded0)
+        bad_hosted = {tn: hosted[tn] for tn in DURABLE_TYPES if hosted[tn]}
+        if bad_hosted:
+            fail(f"[elastic] leg a: device-resident keys seeded on the "
+                 f"host: {bad_hosted}")
+        if moved == 0 or seeded < moved:
+            fail(f"[elastic] leg a: {moved} keys moved, {seeded} seeded "
+                 f"on the card")
+        resident = resident_share(db, keys)
+        if any(v < 100.0 for v in resident.values()):
+            fail(f"[elastic] leg a: resident share below 100 %: {resident}")
+        window = sorted(dt for end, dt in lat if end >= r0)
+        if not window:
+            fail("[elastic] leg a: no commit overlapped the resize")
+        t0 = time.perf_counter()
+        with device_read_timers(db):
+            got = check_tape("phase 17 leg a", db, tape, keys)
+        row.update(
+            resize_s=r1 - r0, moved_keys=moved,
+            ms_per_moved_key=(r1 - r0) * 1e3 / moved,
+            cutover_ms=cut[0] * 1e3, commits=len(lat),
+            commits_in_window=len(window), retries=retries[0],
+            commit_p99_ms=float(np.percentile(window, 99)) * 1e3,
+            commit_p50_ms=float(np.percentile(window, 50)) * 1e3,
+            seeded_on_card=seeded, seeded_on_host=dict(hosted),
+            resident_pct=resident, device_ms=device_ms,
+            busy_share=device_ms / (wall * 1e3), profiled_s=wall,
+            old_ring_objects=len(old), checked_keys=len(got),
+            check_s=time.perf_counter() - t0)
+    finally:
+        db.close()
+    del db
+    gc.collect()
+    torch.cuda.synchronize(device)
+    row["memory_after_close"] = torch.cuda.memory_allocated(device) - mem0
+    if row["memory_after_close"] > shp["mem_slack"]:
+        fail(f"[elastic] leg a: the closed node still holds "
+             f"{row['memory_after_close']} B on the card")
+    left = [t for t in threading.enumerate()
+            if t not in threads0 and t.is_alive()]
+    for t in left:
+        t.join(timeout=5)
+    left = [t.name for t in left if t.is_alive()]
+    if left:
+        fail(f"[elastic] leg a: threads of the closed node still run: "
+             f"{left}")
+    oracle, row["oracle_s"] = durable_oracle(
+        oracle_dir, keys, vc_closed,
+        [[((k, "counter_pn", "bucket"), "increment", n)
+          for k, n in sorted(hot.items())]])
+    bad = [k for k in keys if oracle[k] != got[k]]
+    if bad:
+        fail(f"[elastic] leg a: {len(bad)} keys differ from the host "
+             f"full-scan oracle, first {bad[0]}: {got[bad[0]]!r} against "
+             f"{oracle[bad[0]]!r}")
+    print(f"[elastic] leg a: repartition_live {DURABLE['n_partitions']} -> "
+          f"{shp['new_n']} in {row['resize_s']:.2f} s, {row['moved_keys']} "
+          f"keys moved ({row['ms_per_moved_key']:.4f} ms a key), cutover "
+          f"{row['cutover_ms']:.1f} ms, {row['commits']} commits "
+          f"({row['commits_in_window']} in the window, p99 "
+          f"{row['commit_p99_ms']:.1f} ms), {row['retries']} retries, "
+          f"0 failed; {seeded} seeds on the card, "
+          f"{sum(hosted.values())} on the host; resident {resident}; "
+          f"{len(old)} objects of the old ring released; memory "
+          f"{row['memory_before_resize']} -> {row['memory_after_cutover']}"
+          f" B, {row['memory_after_close']} B after the close; busy "
+          f"{row['busy_share']:.4f}; {len(keys)} keys equal to the tape and"
+          f" the host oracle", flush=True)
+    return row
+
+
+def reshard_node(d, seeded, device):
+    """config 17's node (``_mk_node``) with the device store on."""
+    from antidote_tpu_torch.txn.node import Node
+
+    shp = ELASTIC["b"]
+    return Node(dc_id="dc1", config=Config(
+        device_store=device is not None, n_partitions=shp["old_n"],
+        ckpt=True, ckpt_truncate=False, ckpt_ops=1 << 30,
+        ckpt_bytes=1 << 40, resize_from_ckpt=seeded), data_dir=d,
+        device=device or "cpu")
+
+
+def reshard_commit(node, n, key, tag):
+    """config 17's ``_commit``: one register_lww assign through the
+    partition manager."""
+    pm = node.partition_of(key)
+    txid = ("dc1", n)
+    val = f"{key}:{tag}:{n}:" + "x" * ELASTIC["b"]["val_bytes"]
+    pm.stage_update(txid, key, "register_lww",
+                    (node.clock.now_us(), ("dc1", n), val))
+    pm.single_commit(txid, VC({"dc1": node.clock.now_us()}), certify=False)
+
+
+def ring_state(node):
+    """config 17's ``_ring_state``: per slot, key -> value."""
+    return [{k: pm.value_snapshot(k, "register_lww")
+             for k in pm.log.keys_seen} for pm in node.partitions]
+
+
+def reshard_build(d, keyspace, device):
+    """config 17's ``_build``: ``rounds`` versions of every key, a cut,
+    then the churn suffix; closed."""
+    shp = ELASTIC["b"]
+    node = reshard_node(d, True, device)
+    try:
+        n = 0
+        for r in range(shp["rounds"]):
+            for i in range(keyspace):
+                reshard_commit(node, n, f"k_{i:06d}", f"r{r}")
+                n += 1
+        for pm in node.partitions:
+            if pm.checkpoint_now() is None:
+                fail("[elastic] leg b: a partition cut no checkpoint")
+        for i in range(shp["churn"]):
+            reshard_commit(node, n, f"k_{i:06d}", "churn")
+            n += 1
+    finally:
+        node.close()
+
+
+def reshard_leg(root, name, keyspace, repeats, device):
+    """config 17's ``_resize_leg`` on the card: each repeat a fresh
+    build, its seeded resize timed, every slot equal to the full-history
+    fold of a byte copy.  Returns (median ms a moved key seeded, the
+    same of the full fold, moved keys, seeds on the card)."""
+    reg = stats.registry
+    seeded_ms, full_ms, moved, on_card = [], [], 0, 0
+    for r in range(repeats):
+        d = os.path.join(root, f"{name}_{r}")
+        reshard_build(d, keyspace, device)
+        oracle_d = d + "_oracle"
+        shutil.copytree(d, oracle_d)
+        node = reshard_node(d, True, device)
+        try:
+            moved0 = reg.reshard_moved_keys.value()
+            dev0 = reg.ckpt_seed_device_keys.value()
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            node.repartition(ELASTIC["b"]["new_n"])
+            torch.cuda.synchronize(device)
+            wall_s = time.perf_counter() - t0
+            moved = int(reg.reshard_moved_keys.value() - moved0)
+            on_card = int(reg.ckpt_seed_device_keys.value() - dev0)
+            if planes_on(node.partitions) != [device.type]:
+                fail(f"[elastic] leg b {name}: planes on "
+                     f"{planes_on(node.partitions)}")
+            state_s = ring_state(node)
+        finally:
+            node.close()
+        if moved == 0:
+            fail(f"[elastic] leg b {name}: the seeded resize moved no key")
+        onode = reshard_node(oracle_d, False, None)
+        try:
+            t0 = time.perf_counter()
+            onode.repartition(ELASTIC["b"]["new_n"])
+            wall_f = time.perf_counter() - t0
+            state_o = ring_state(onode)
+        finally:
+            onode.close()
+        if state_s != state_o:
+            diff = [q for q, (a, b) in enumerate(zip(state_s, state_o))
+                    if a != b]
+            fail(f"[elastic] leg b {name}: slots {diff} differ from the "
+                 f"full-history fold")
+        seeded_ms.append(wall_s * 1e3 / moved)
+        full_ms.append(wall_f * 1e3 / moved)
+        shutil.rmtree(d)
+        shutil.rmtree(oracle_d)
+    return (float(np.median(seeded_ms)), float(np.median(full_ms)), moved,
+            on_card)
+
+
+def elastic_leg_b(device, root):
+    """Leg b: config 17's seeded resize scaling through the port's Node
+    with its planes on ``device``.  Returns its row."""
+    shp = ELASTIC["b"]
+    reshard_leg(root, "warmup", shp["small"], 1, device)
+    small, full_small, moved_small, card_small = reshard_leg(
+        root, "small", shp["small"], shp["repeats"], device)
+    big, full_big, moved_big, card_big = reshard_leg(
+        root, "big", shp["big"], 1, device)
+    bound = small * 1.5 + 3.0
+    row = dict(source=shp["source"], reduced=shp["reduced"],
+               seeded_small_ms_per_key=small, full_small_ms_per_key=full_small,
+               seeded_big_ms_per_key=big, full_big_ms_per_key=full_big,
+               bound_ms_per_key=bound, moved_keys_small=moved_small,
+               moved_keys_big=moved_big, seeded_on_card_small=card_small,
+               seeded_on_card_big=card_big)
+    print(f"[elastic] leg b: seeded resize {small:.3f} ms a moved key at "
+          f"{shp['small']} keys ({moved_small} moved), {big:.3f} at "
+          f"{shp['big']} ({moved_big} moved), bound {bound:.3f}; full fold "
+          f"{full_small:.3f} / {full_big:.3f}; every slot equal to the "
+          f"full-history fold", flush=True)
+    if big > bound:
+        fail(f"[elastic] leg b: the seeded resize pays {big:.3f} ms a moved "
+             f"key at {shp['big']} keys against {small:.3f} at "
+             f"{shp['small']}: past the bound {bound:.3f}")
+    return row
+
+
+def elastic_mix(clients, shp, seed, tape, txns):
+    """Config 6's mix on every client at once (``threads`` x ``txns``);
+    returns (the runs, txn/s)."""
+    t0 = time.perf_counter()
+    for i, c in enumerate(clients):
+        c.post("run", txns=txns, threads=shp["threads"], keys=shp["keys"],
+               seed=seed + i)
+    runs = all_reply(clients, "run")
+    wall = time.perf_counter() - t0
+    for c, out in zip(clients, runs):
+        tape_merge(tape, c.name, out)
+    return runs, sum(len(r["lat_ms"]) for r in runs) / wall
+
+
+def elastic_leg_c(device, root):
+    """Leg c: four data-node processes and two clients; the mix, a cut
+    on every partition, ``resize_cluster`` to 16 under one client's
+    mix, a fifth data node that takes one partition of each of the four
+    by ``rebalance`` under the mix, then the mix again and every touched
+    key read through each client at its new owner.  Returns its row."""
+    shp = ELASTIC["c"]
+    nodes, clients = [], []
+    steps = Steps()
+    try:
+        nodes = [NodeChild(f"n{i + 1}", root, device)
+                 for i in range(shp["data_nodes"])]
+        clients = [Child(f"c{i + 1}", ["client", f"c{i + 1}",
+                                       os.path.join(root, f"c{i + 1}"),
+                                       device.type], root)
+                   for i in range(2)]
+        for n in nodes:
+            n.serving()
+        addrs = {n.name: n.addr for n in nodes}
+        for c in clients:
+            addrs[c.name] = c.reply("start")["addr"]
+        ring = {str(p): f"n{p % shp['data_nodes'] + 1}"
+                for p in range(shp["partitions"])}
+        names = [c.name for c in clients]
+        clients[0].send("join", dc="dc1", ring=ring, members=addrs,
+                        clients=names, push=[n.name for n in nodes])
+        clients[1].send("join", dc="dc1", ring=ring, members=addrs,
+                        clients=names)
+        steps("start")
+        tape = MdcTape()
+        elastic_mix(clients, shp, 1690, tape, shp["warm_txns"])
+        _, before = elastic_mix(clients, shp, 1700, tape, shp["txns"])
+        cuts = sum(n.send("checkpoint")["cut"] for n in nodes)
+        steps("mix and cut")
+        clients[1].post("run", txns=shp["txns_during"],
+                        threads=shp["threads"], keys=shp["keys"], seed=1710,
+                        retry_timeouts=True)
+        resized = clients[0].send("resize", new_n=shp["new_n"])
+        during = clients[1].reply("run during the resize")
+        tape_merge(tape, clients[1].name, during)
+        runs_during = [dict(committed=len(during["lat_ms"]),
+                            retries=during["aborts"], seconds=during["secs"])]
+        steps("resize")
+        n5 = NodeChild("n5", root, device)
+        n5.serving()
+        nodes.append(n5)
+        clients[0].send("add_member", node_id="n5", addr=n5.addr)
+        new_ring = {int(p): o for p, o in resized["ring"].items()}
+        moves = [min(p for p, o in new_ring.items() if o == f"n{i + 1}")
+                 for i in range(shp["moves"])]
+        clients[1].post("run", txns=shp["txns_during"],
+                        threads=shp["threads"], keys=shp["keys"], seed=1720,
+                        retry_timeouts=True)
+        handoffs = []
+        for p in moves:
+            new_ring[p] = "n5"
+            handoffs.append(clients[0].send(
+                "rebalance", ring={str(q): o for q, o in new_ring.items()}
+            )["seconds"])
+        during = clients[1].reply("run during the handoffs")
+        tape_merge(tape, clients[1].name, during)
+        runs_during.append(dict(committed=len(during["lat_ms"]),
+                                retries=during["aborts"],
+                                seconds=during["secs"]))
+        steps("handoffs")
+        _, after = elastic_mix(clients, shp, 1730, tape, shp["txns"])
+        steps("mix after")
+        for c in clients:
+            ring_now = {int(p): o for p, o in c.send("ring")["ring"].items()}
+            if ring_now != new_ring:
+                fail(f"[elastic] leg c: {c.name}'s ring {ring_now} is not "
+                     f"the planned {new_ring}")
+        reports = [n.send("report") for n in nodes]
+        held = {r["node"]: r["partitions"] for r in reports}
+        if sorted(held["n5"]) != sorted(moves):
+            fail(f"[elastic] leg c: n5 holds {held['n5']}, not {moves}")
+        checked = tape_check("phase 17 leg c", clients, tape, nodes)
+        steps("check")
+        check_reports("leg c", reports, device)
+        exits = stop_all(nodes, clients)
+        nodes = clients = []
+        check_reports("leg c at exit", exits, device, planes=False)
+        steps("stop")
+        row = dict(
+            source=shp["source"], reduced=shp["reduced"],
+            data_nodes=[shp["data_nodes"], shp["data_nodes"] + 1],
+            partitions=[shp["partitions"], shp["new_n"]],
+            keys_per_type=shp["keys"], checkpoints_cut=cuts,
+            resize_s=resized["seconds"], handoff_s=handoffs,
+            moved_partitions=moves, txn_per_s_before=before,
+            txn_per_s_after=after, mix_during_resize=runs_during[0],
+            mix_during_handoffs=runs_during[1],
+            seg_bytes_shipped=reports[-1]["stream_seg_bytes"],
+            seg_fetches=reports[-1]["stream_seg_fetches"],
+            peak_memory_by_node={r["node"]: r["peak_memory"]
+                                 for r in reports},
+            keys_checked=checked, steps_s=steps.s)
+        print(f"[elastic] leg c: resize_cluster {shp['partitions']} -> "
+              f"{shp['new_n']} in {row['resize_s']:.2f} s; handoffs to n5 "
+              f"{[round(h, 2) for h in handoffs]} s, "
+              f"{row['seg_bytes_shipped']} B in checkpoint segments; "
+              f"{before:.0f} txn/s before, {after:.0f} after; {checked} "
+              f"keys equal at their owners", flush=True)
+        return row
+    finally:
+        for c in nodes + clients:
+            if c.p.poll() is None:
+                c.p.kill()
+                c.p.wait()
+
+
+def phase_elastic(device):
+    """Phase 17: the elastic keyspace on ``device``.  Returns its row."""
+    errors = ErrorRecords()
+    port_log = logging.getLogger("antidote_tpu_torch")
+    port_log.addHandler(errors)
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        t0 = time.perf_counter()
+        row = dict(a=elastic_leg_a(device, os.path.join(root, "a")))
+        errors.check("phase 17 leg a")
+        row["b"] = elastic_leg_b(device, os.path.join(root, "b"))
+        errors.check("phase 17 leg b")
+        row["c"] = elastic_leg_c(device, os.path.join(root, "c"))
+        errors.check("phase 17 leg c")
+        if foreign_modules():
+            fail(f"[elastic] modules of jax or the JAX package loaded: "
+                 f"{foreign_modules()[:5]}")
+        row["seconds"] = time.perf_counter() - t0
+        print(f"[elastic] phase 17 {row['seconds']:.1f} s", flush=True)
+    finally:
+        port_log.removeHandler(errors)
+        shutil.rmtree(root, ignore_errors=True)
+    return row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
                                  "one GPU (the module's docstring).")
@@ -5929,6 +6573,9 @@ def main(argv=None):
     ap.add_argument("--durability-only", action="store_true",
                     help="run phases 1, 2 and 16 (a checkpoint-seeded "
                     "restart on the card) only")
+    ap.add_argument("--elastic-only", action="store_true",
+                    help="run phases 1, 2 and 17 (a live ring resize, a "
+                    "cluster resize and a handoff on the card) only")
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of an earlier commit whose fixpoint "
                     "wrapper phase 10 times in turns with this one")
@@ -5961,11 +6608,11 @@ def main(argv=None):
 
     rows = []
     only = [o for o in ("gate", "txn", "multidc", "cluster", "pb", "mesh",
-                        "durability") if getattr(args, f"{o}_only")]
+                        "durability", "elastic") if getattr(args, f"{o}_only")]
     if len(only) > 1:
         ap.error("at most one of --gate-only, --txn-only, --multidc-only, "
                  "--cluster-only, --pb-only, --mesh-only, "
-                 "--durability-only")
+                 "--durability-only, --elastic-only")
     everything = not only
     if everything:
         t0 = time.perf_counter()
@@ -6008,6 +6655,8 @@ def main(argv=None):
         durability = phase_durability(
             device, txn["b"]["threads_8"]["txn_per_s"] if everything
             else None)
+    if everything or args.elastic_only:
+        elastic = phase_elastic(device)
     if everything:
         print(json.dumps({"types": types}))
         print(json.dumps({"plane": plane}))
@@ -6025,6 +6674,8 @@ def main(argv=None):
         print(json.dumps({"mesh": mesh}))
     if everything or args.durability_only:
         print(json.dumps({"durability": durability}))
+    if everything or args.elastic_only:
+        print(json.dumps({"elastic": elastic}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -146,3 +146,36 @@ def test_converter_refuses_what_it_does_not_know(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="not empty"):
         data_dir_from_jax(str(src), str(tmp_path / "full"))
     assert sorted(os.listdir(src)) == names     # the source is untouched
+
+
+def test_converter_traces_its_writes_and_routes_its_settings(
+        tmp_path, monkeypatch):
+    """Every fsynced write of the converter sits in a ``convert_write``
+    span, every checkpoint it writes in a ``convert_ckpt`` span, and the
+    checkpoint store it writes through takes its settings from
+    ``ckpt_from_config``."""
+    from antidote_tpu_torch.obs.spans import tracer
+    from antidote_tpu_torch.oplog import checkpoint as ck
+
+    monkeypatch.setattr(jtracer, "sample_rate", 0.0)
+    src, dst = tmp_path / "jax", tmp_path / "port"
+    db = AntidoteTPU(dc_id="dc1", config=JConfig(**CFG), data_dir=str(src))
+    _tape(db, 5, 0)
+    for p in db.node.partitions:
+        assert p.checkpoint_now() is not None
+    db.close()
+    names = os.listdir(src)
+    routed = []
+    factory = ck.ckpt_from_config
+    monkeypatch.setattr(ck, "ckpt_from_config",
+                        lambda cfg: routed.append(cfg) or factory(cfg))
+    monkeypatch.setattr(tracer, "sample_rate", 1.0)
+    tracer.clear()
+    data_dir_from_jax(str(src), str(dst))
+    n_logs = sum(n.endswith(".log") for n in names)
+    n_ckpts = sum(n.endswith(".ckpt") for n in names)
+    n_segs = sum(".seg-" in n for n in names)
+    assert n_ckpts == CFG["n_partitions"] and n_segs >= n_ckpts
+    assert len(tracer.spans(name="convert_write")) == n_logs + n_segs
+    assert len(tracer.spans(name="convert_ckpt")) == n_ckpts
+    assert routed == [None] * n_ckpts

@@ -33,14 +33,14 @@ COPIES = ["clocks/vc.py", "config.py", "crdt/__init__.py", "crdt/base.py",
           "meta/stable_store.py", "txn/clock.py", "hooks.py",
           "obs/probe.py", "native/oplog.cpp",
           "oplog/log.py", "oplog/checkpoint.py", "oplog/partition.py",
-          "oplog/__init__.py", "mat/host_store.py", "txn/manager.py",
+          "oplog/__init__.py", "mat/host_store.py",
           "mat/serve.py", "cluster/remote.py", "txn/coordinator.py",
           "txn/__init__.py", "obs/pipeline.py", "obs/slo.py",
           "obs/fleet.py", "obs/nativeobs.py", "interdc/interest.py",
           "interdc/transport.py", "interdc/query.py", "interdc/sub_buf.py",
           "interdc/sender.py", "bcounter.py", "interdc/__init__.py",
           "native/tel_ring.h", "native/fabric.cpp", "native/nodelink.cpp",
-          "interdc/tcp.py", "cluster/link.py", "cluster/nativelink.py",
+          "interdc/tcp.py", "cluster/link.py",
           "cluster/__init__.py", "pb/antidote.proto",
           "pb/antidote_compat.proto", "pb/antidote_pb2.py",
           "pb/antidote_compat_pb2.py", "pb/codec.py", "pb/compat.py",
@@ -52,18 +52,84 @@ DIFFERS = {
     # renamed into place: the module lock guards one process only, and
     # several node and DC processes build at first use
     "native/build.py": [
-        (['        cmd = ["g++", "-O2", "-fPIC", "-shared", "-std=c++17",',
-          '               "-pthread", src, "-o", out]'],
-         ['        # build under a name of this process\'s own, then rename: the',
+        (['        os.makedirs(_BUILD_DIR, exist_ok=True)'],
+         ['        os.makedirs(_BUILD_DIR, exist_ok=True)',
+          '        # build under a name of this process\'s own, then rename: the',
           '        # lock guards one process only, and a node or DC process',
           '        # loading the library while another builds it must never map',
           '        # a partial file',
-          '        tmp = f"{out}.{os.getpid()}.tmp"',
-          '        cmd = ["g++", "-O2", "-fPIC", "-shared", "-std=c++17",',
+          '        tmp = f"{out}.{os.getpid()}.tmp"']),
+        (['        cmd = ["g++", "-O2", "-fPIC", "-shared", "-std=c++17",',
+          '               "-pthread", src, "-o", out]'],
+         ['        cmd = ["g++", "-O2", "-fPIC", "-shared", "-std=c++17",',
           '               "-pthread", src, "-o", tmp]']),
-        (['            return None', '        return out'],
-         ['            return None', '        os.replace(tmp, out)',
-          '        return out']),
+        # the rename is durable: the library fsynced before it, the
+        # directory after it (durability_lint's atomic-publish rule)
+        (['            return None'],
+         ['            return None',
+          '        # lock-ok: the lock exists to serialise this process\'s builds;',
+          '        # nothing else takes it',
+          '        publish(tmp, out)']),
+        (['        return out'],
+         ['        return out', '', '',
+          'def publish(tmp: str, out: str) -> None:',
+          '    """Renames a finished build into place, its bytes fsynced before the',
+          '    rename and the directory after it: a crash never leaves a torn',
+          '    library under the final name, which a later start would take as',
+          '    built (this build and the CUDA kernels\' in ``_cuda.py``)."""',
+          '    from antidote_tpu_torch.oplog.log import _fsync_dir',
+          '',
+          '    with open(tmp, "rb") as f:',
+          '        os.fsync(f.fileno())',
+          '    os.replace(tmp, out)',
+          '    _fsync_dir(os.path.dirname(out), instant="build_dir_fsync")']),
+    ],
+    # the flusher's waiting frame drops the partition it flushed last
+    # (a ring resize drops the partition, whose planes hold device
+    # memory), and its device sync under the partition lock is audited
+    "txn/manager.py": [
+        (['                return',
+          '            key, pm, plane = item',
+          '            with self._lock:',
+          '                self._queued.discard(key)',
+          '            try:',
+          '                with pm._lock:',
+          '                    pm._wait_device_quiesce()',
+          '                    plane.flush_gc_now()',
+          '            except Exception:  # noqa: BLE001 — the drain must not die',
+          '                import logging as _logging'],
+         ['                return',
+          '            self._flush_one(*item)',
+          '            # the waiting frame must not keep the last partition flushed',
+          '            # reachable: a ring resize drops it, and its planes hold',
+          '            # device memory until every reference dies',
+          '            del item']),
+        (['',
+          '                _logging.getLogger(__name__).exception(',
+          '                    "background device flush failed")'],
+         ['',
+          '    def _flush_one(self, key, pm: "PartitionManager", plane) -> None:',
+          '        with self._lock:',
+          '            self._queued.discard(key)',
+          '        try:',
+          '            with pm._lock:',
+          '                pm._wait_device_quiesce()',
+          '                # lock-ok: the flusher\'s contract: the flush runs under',
+          '                # the partition lock with readers quiesced, its device',
+          '                # sync included',
+          '                plane.flush_gc_now()',
+          '        except Exception:  # noqa: BLE001 — the drain must not die',
+          '            import logging as _logging',
+          '',
+          '            _logging.getLogger(__name__).exception(',
+          '                "background device flush failed")']),
+    ],
+    # the build under the load lock is audited (concurrency_lint)
+    "cluster/nativelink.py": [
+        (['        from antidote_tpu_torch.native.build import ensure_built', ''],
+         ['        from antidote_tpu_torch.native.build import ensure_built', '',
+          '        # lock-ok: the lock exists to build and load the library once',
+          '        # a process; nothing else takes it']),
     ],
     # the generated modules are never regenerated: the docstring says
     # why they are byte-identical in place of how to regenerate them
