@@ -21,6 +21,7 @@ from antidote_tpu_torch import resolve_device
 from antidote_tpu_torch.clocks import dense
 from antidote_tpu_torch.mat import store
 from antidote_tpu_torch.mat.synth import orset_batch
+from antidote_tpu_torch.obs.prof import profiler
 
 #: the fields of a batch, in orset_append's argument order
 BATCH_FIELDS = store.SHARD_TYPES["set_aw"].fields
@@ -43,8 +44,10 @@ def batch_frontier(batch: dict) -> torch.Tensor:
     time only in this closed single-stream setting, where every op <= the
     frontier has just been applied; a live store folds at the gossiped
     GST instead."""
-    cvc = dense.commit_vc(batch["op_ss"], batch["op_dc"], batch["op_ct"])
-    return torch.amax(cvc, dim=0)
+    with profiler.span("superstep.frontier"):
+        cvc = dense.commit_vc(batch["op_ss"], batch["op_dc"],
+                              batch["op_ct"])
+        return torch.amax(cvc, dim=0)
 
 
 def superstep(st: store.OrsetShardState, batch: dict, gc: bool = True,
@@ -52,13 +55,17 @@ def superstep(st: store.OrsetShardState, batch: dict, gc: bool = True,
     """Append ``batch``, GC at its frontier if ``gc``, then read every
     key at the frontier.  ``fused`` is store.orset_read_full's and
     orset_gc_full's.  Returns (state, presence bool[K, E], overflow
-    bool[B]); ``st`` is updated in place by the append."""
-    st, overflow = store.orset_append(st, *(batch[k] for k in BATCH_FIELDS))
-    frontier = batch_frontier(batch)
-    if gc:
-        st = store.orset_gc_full(st, frontier, fused=fused)
-    present = store.orset_read_full(st, frontier, fused=fused)
-    return st, present, overflow
+    bool[B]); ``st`` is updated in place by the append.  While the
+    kernel profiler is timing, the step and its frontier are host spans
+    (obs/prof.py), beside the wrapped calls' own."""
+    with profiler.span("superstep"):
+        st, overflow = store.orset_append(
+            st, *(batch[k] for k in BATCH_FIELDS))
+        frontier = batch_frontier(batch)
+        if gc:
+            st = store.orset_gc_full(st, frontier, fused=fused)
+        present = store.orset_read_full(st, frontier, fused=fused)
+        return st, present, overflow
 
 
 def entry(K: int = 8192, B: int = 1024, D: int = 8, n_dcs: int = 3,

@@ -19,23 +19,39 @@ antidote_tpu/obs/prof.py).
 - **Signature counters** — the JAX package counts jit compile-cache
   misses: the first call of a function at a new abstract signature.
   Eager PyTorch compiles nothing, so here the same counters
-  (``compile_misses``, ``kernel_compile_misses``) count the first call
-  of each wrapped function at each argument signature (the shape and
-  dtype of every tensor, the value of every plain scalar): the shapes
-  the device code has seen, whose count bounds the kernel variants the
-  card has been given.
+  (``compile_misses``, ``kernel_compile_misses``) count the first
+  *timed* call of each wrapped function at each argument signature
+  (the shape and dtype of every tensor, the value of every plain
+  scalar): the shapes seen while profiling.
 - **Device-buffer census** — per-subsystem high-watermarks of the
-  largest output any of the subsystem's calls returned, and, in
+  largest output any of the subsystem's timed calls returned, and, in
   :meth:`DeviceProfiler.snapshot`, the card's allocated and peak bytes
   (``torch.cuda.memory_allocated`` / ``max_memory_allocated``).
+- **Host spans** — while the profiler is timing, every wrapped call
+  (under the kernel's name, the profiler's own bookkeeping of the call
+  included) and every :meth:`DeviceProfiler.span` block (the superstep
+  and its frontier, ``entry.py``) is kept in a preallocated buffer of
+  (name, start ns, end ns, depth), on ``time.time_ns()``: the clock
+  ``torch.profiler``'s events carry, so a device trace's idle gaps can
+  be named by what the host was doing.  When the buffer is full
+  (``HOST_SPANS_CAP``) the oldest spans go and are counted;
+  :meth:`DeviceProfiler.host_spans` returns the spans and that count,
+  and :meth:`DeviceProfiler.reset` clears both.
 - **Capture** — :func:`start`/:func:`stop`/:func:`profile` drive
   ``torch.profiler`` and write a Chrome trace into the directory; while
   one is open every wrapped call is labelled
-  ``kernel:<name>[txid=...]`` in it.
+  ``kernel:<name>[txid=...]`` in it, and every host span by its name.
+
+A call is *timed* while it runs under a sampled txn span, in ``detail``
+mode or while a capture is open.
 
 Cost: with ``profiler.enabled`` False every wrapped call is one
-attribute check and the call.  Enabled, a call costs a few µs of host
-bookkeeping, and never waits for the card unless someone samples it.
+attribute check and the call.  Enabled but not timing, a call costs one
+check, two clock readings and two registry updates (``kernel_calls``,
+``kernel_dispatch_latency``, which so cover every call), and walks
+none of its arguments.  Timed,
+it costs some tens of µs of host bookkeeping, and never waits for the
+card unless someone samples it.
 A call made while a CUDA graph is being captured, or from inside
 another wrapped call (a store fold inside ``fused_read``, the ring
 fixpoint inside ``gate_fixpoint``: what the JAX package composes into
@@ -55,6 +71,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from antidote_tpu_torch import stats as _stats
 from antidote_tpu_torch.obs.spans import tracer
 
 # ------------------------------------------------------------------ capture
@@ -122,8 +139,12 @@ def active_dir() -> Optional[str]:
 
 # --------------------------------------------------------- kernel-span layer
 
-#: per thread: inside a wrapped call (nested wrapped calls pass through)
+#: per thread: inside a wrapped call (nested wrapped calls pass
+#: through), and the depth of open host spans
 _local = threading.local()
+
+#: what :meth:`DeviceProfiler.span` gives while nothing is timed
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _capturing() -> bool:
@@ -182,6 +203,41 @@ def _nbytes(out) -> int:
 #: bound when a kernel's signature space is large
 _SHAPES_CAP = 1024
 
+#: host spans kept (oldest dropped past it): a 3 s traced window of the
+#: 1M-key superstep records about 11,000
+HOST_SPANS_CAP = 65536
+
+
+class _HostSpan:
+    """One host span: the enclosed block on ``time.time_ns()``, kept
+    in the profiler's buffer at its end, and labelled in the trace while
+    a capture is open.  Entered only while the profiler is timing."""
+
+    __slots__ = ("_prof", "name", "_label", "_annot", "_depth", "t0", "t1")
+
+    def __init__(self, prof: "DeviceProfiler", name: str,
+                 label: Optional[str] = None):
+        self._prof = prof
+        self.name = name
+        self._label = label or name
+
+    def __enter__(self) -> "_HostSpan":
+        self._depth = getattr(_local, "depth", 0)
+        _local.depth = self._depth + 1
+        self._annot = None
+        if _active_dir is not None:
+            self._annot = annotate(self._label)
+            self._annot.__enter__()
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.t1 = time.time_ns()
+        if self._annot is not None:
+            self._annot.__exit__(*exc)
+        _local.depth = self._depth
+        self._prof._keep(self.name, self.t0, self.t1, self._depth)
+
 
 class _KernelStat:
     """Aggregate for one wrapped kernel (mutated under the profiler
@@ -220,6 +276,16 @@ class DeviceProfiler:
         #: recorded event pairs not yet resolved, oldest first:
         #: (stat, start, end, span args or None)
         self._pending: deque = deque()
+        #: the host-span ring, preallocated: span i of the ``_kept``
+        #: since reset() sits at i % cap
+        self._cap = HOST_SPANS_CAP
+        self._names: list = [None] * self._cap
+        self._t0 = [0] * self._cap
+        self._t1 = [0] * self._cap
+        self._depths = [0] * self._cap
+        self._kept = 0
+        #: end (ns) of the newest span dropped for room, 0 if none
+        self._dropped_until = 0
 
     # -------------------------------------------------------- configuration
 
@@ -231,11 +297,55 @@ class DeviceProfiler:
             self.detail = bool(detail)
 
     def reset(self) -> None:
-        """Drop all aggregates (test isolation)."""
+        """Drop all aggregates and host spans (test isolation; the
+        benchmark's traced window)."""
         with self._lock:
             self._stats.clear()
             self._subsys_hwm.clear()
             self._pending.clear()
+            self._kept = 0
+            self._dropped_until = 0
+
+    def timing(self) -> bool:
+        """Whether calls made now are timed: in ``detail`` mode, under
+        an open capture or under a sampled txn span."""
+        return self.enabled and (self.detail or _active_dir is not None
+                                 or tracer.current() is not None)
+
+    # ----------------------------------------------------------- host spans
+
+    def span(self, name: str):
+        """Context manager: a host span named ``name`` over the block,
+        kept (and labelled in an open capture) while the profiler is
+        timing; otherwise a shared no-op."""
+        if not self.timing():
+            return _NO_SPAN
+        return _HostSpan(self, name)
+
+    def _keep(self, name: str, t0: int, t1: int, depth: int) -> None:
+        with self._lock:
+            i = self._kept % self._cap
+            if self._kept >= self._cap:
+                self._dropped_until = self._t1[i]
+            self._names[i] = name
+            self._t0[i] = t0
+            self._t1[i] = t1
+            self._depths[i] = depth
+            self._kept += 1
+
+    def host_spans(self) -> Dict[str, Any]:
+        """The kept host spans, in the order they ended, as (name,
+        start ns, end ns, depth) on ``time.time_ns()``'s clock;
+        ``dropped`` counts those dropped for room since reset(), the
+        newest of which ended at ``dropped_until_ns``."""
+        with self._lock:
+            n = min(self._kept, self._cap)
+            first = self._kept - n
+            idx = [(first + j) % self._cap for j in range(n)]
+            spans = [(self._names[i], self._t0[i], self._t1[i],
+                      self._depths[i]) for i in idx]
+            return {"spans": spans, "dropped": first,
+                    "dropped_until_ns": self._dropped_until}
 
     # ------------------------------------------------------------- wrapping
 
@@ -269,72 +379,83 @@ class DeviceProfiler:
         return st
 
     def _call(self, fn, kname: str, subsystem: str, args, kwargs):
-        from antidote_tpu_torch import stats as _stats
-
-        reg = _stats.registry
         st = self._stat(kname, subsystem)
-        leaves = _leaves((args, kwargs), [])
-        # the function's id joins the key: several distinct callables
-        # can share one kernel NAME, as in the JAX module
-        sig = (id(fn),) + _sig(leaves)
-        if sig not in st.shapes:
-            with self._lock:
-                if sig not in st.shapes:
-                    if len(st.shapes) >= _SHAPES_CAP:
-                        st.shapes.clear()
-                    st.shapes.add(sig)
-                    st.compile_misses += 1
-                    reg.kernel_compile_misses.inc(kernel=kname)
-        if self._pending:
-            self._resolve(wait=False)
-        cur = tracer.current()
-        cap = _active_dir is not None
-        timed = cur is not None or cap or self.detail
-        cuda = timed and any(isinstance(x, torch.Tensor) and x.is_cuda
-                             for x in leaves)
-        t0_us = time.time_ns() // 1000
-        t0 = time.perf_counter()
-        if cuda:
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
-        if cap:
-            label = f"kernel:{kname}"
-            if cur is not None and cur.txid is not None:
-                label += f"[txid={cur.txid!r}]"
-            with annotate(label):
-                out = fn(*args, **kwargs)
-        else:
+        if not self.timing():
+            # not timed: no argument walk, no census, no span
+            if self._pending:
+                self._resolve(wait=False)
+            t0_us = time.time_ns() // 1000
+            t0 = time.perf_counter_ns()
             out = fn(*args, **kwargs)
-        dispatch = time.perf_counter() - t0
-        if cuda:
-            ev1.record()
-        nb = _nbytes(out)
-        with self._lock:
-            st.calls += 1
-            st.dispatch_s += dispatch
-            st.last_call_us = t0_us
-            if nb > st.bytes_out_hwm:
-                st.bytes_out_hwm = nb
-            if nb > self._subsys_hwm.get(subsystem, 0):
-                self._subsys_hwm[subsystem] = nb
-                reg.device_buffer_hwm.set(nb, subsystem=subsystem)
-        reg.kernel_calls.inc(kernel=kname, subsystem=subsystem)
-        reg.kernel_dispatch_latency.observe(dispatch)
+            self._count(st, kname, subsystem, t0_us,
+                        (time.perf_counter_ns() - t0) / 1e9)
+            return out
+        cur = tracer.current()
+        label = f"kernel:{kname}"
+        if cur is not None and cur.txid is not None:
+            label += f"[txid={cur.txid!r}]"
+        # the span holds the whole timed call, the profiler's own host
+        # work included, so a device gap during it is this kernel's
+        with _HostSpan(self, kname, label) as hs:
+            if self._pending:
+                self._resolve(wait=False)
+            reg = _stats.registry
+            leaves = _leaves((args, kwargs), [])
+            # the function's id joins the key: several distinct
+            # callables can share one kernel NAME, as in the JAX module
+            sig = (id(fn),) + _sig(leaves)
+            if sig not in st.shapes:
+                with self._lock:
+                    if sig not in st.shapes:
+                        if len(st.shapes) >= _SHAPES_CAP:
+                            st.shapes.clear()
+                        st.shapes.add(sig)
+                        st.compile_misses += 1
+                        reg.kernel_compile_misses.inc(kernel=kname)
+            cuda = any(isinstance(x, torch.Tensor) and x.is_cuda
+                       for x in leaves)
+            if cuda:
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev0.record()
+            t0 = time.perf_counter_ns()
+            out = fn(*args, **kwargs)
+            dispatch = (time.perf_counter_ns() - t0) / 1e9
+            if cuda:
+                ev1.record()
+            nb = _nbytes(out)
+            with self._lock:
+                if nb > st.bytes_out_hwm:
+                    st.bytes_out_hwm = nb
+                if nb > self._subsys_hwm.get(subsystem, 0):
+                    self._subsys_hwm[subsystem] = nb
+                    reg.device_buffer_hwm.set(nb, subsystem=subsystem)
+        self._count(st, kname, subsystem, hs.t0 // 1000, dispatch)
         span = None
         if cur is not None:
-            span = (kname, subsystem, cur.txid, t0_us, cur.span_id)
+            span = (kname, subsystem, cur.txid, hs.t0 // 1000,
+                    cur.span_id)
         if cuda:
             with self._lock:
                 self._pending.append((st, ev0, ev1, span))
-        elif timed:
+        else:
             # the CPU ran the call to its end: completion is the wall
             self._complete(st, dispatch, span)
         return out
 
-    def _complete(self, st: _KernelStat, dur: float, span) -> None:
-        from antidote_tpu_torch import stats as _stats
+    def _count(self, st: _KernelStat, kname: str, subsystem: str,
+               t0_us: int, dispatch: float) -> None:
+        """What every call counts, timed or not: its start (µs on
+        ``time.time_ns()``) and its dispatch's seconds."""
+        with self._lock:
+            st.calls += 1
+            st.dispatch_s += dispatch
+            st.last_call_us = t0_us
+        reg = _stats.registry
+        reg.kernel_calls.inc(kernel=kname, subsystem=subsystem)
+        reg.kernel_dispatch_latency.observe(dispatch)
 
+    def _complete(self, st: _KernelStat, dur: float, span) -> None:
         with self._lock:
             st.completions += 1
             st.complete_s += dur
@@ -367,8 +488,8 @@ class DeviceProfiler:
     # -------------------------------------------------------------- queries
 
     def snapshot(self) -> Dict[str, Any]:
-        """JSON-ready profiler state — the /debug/prof body.  Resolves
-        the recorded event pairs first."""
+        """JSON-ready profiler state — the /debug/prof body, keyed as
+        the JAX profiler's.  Resolves the recorded event pairs first."""
         self.flush()
         with self._lock:
             kernels = {

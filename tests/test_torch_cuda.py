@@ -7,8 +7,8 @@ device plane's waits (one a flush chunk, one a read), the dependency
 gate's fixpoint kernel against its plain version and the gate on the
 card against the gate on the CPU (its ring updates without a wait, its
 waits per fixpoint the same at any number of rounds), the kernel spans'
-event pairs, three DataCenters cut and healed on the card against the
-CPU, NodeServers and a federation on the card against the CPU, a node
+event pairs, a host span's clock against the device trace's, three
+DataCenters cut and healed on the card against the CPU, NodeServers and a federation on the card against the CPU, a node
 process on the card, and the wrappers' refusals.  Every test here
 skips where no CUDA device is present.
 
@@ -734,6 +734,44 @@ def test_kernel_spans_time_the_card_from_events(cuda_device):
         assert 0 < snap["complete_mean_s"] < 1
         assert snap["compile_misses"] == 1
         assert profiler.snapshot()["live_buffers"]["bytes"] > 0
+    finally:
+        profiler.configure(enabled=saved[0], detail=saved[1])
+        profiler.reset()
+
+
+@pytest.mark.cuda
+def test_host_span_holds_its_kernels_device_start(cuda_device):
+    """A host span (obs/prof.py, ``time.time_ns()``) around a launch on
+    an idle card holds the kernel's device start as torch.profiler's
+    events give it, up to 100 µs after the span's end: the spans and
+    the device trace share one clock."""
+    from antidote_tpu_torch.obs.prof import profiler
+
+    saved = (profiler.enabled, profiler.detail)
+    profiler.reset()
+    profiler.configure(enabled=True, detail=True)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    try:
+        torch.cuda._sleep(1000)             # the kernel loaded
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as p:
+            for _ in range(5):
+                torch.cuda.synchronize()
+                with profiler.span("sleep_probe"):
+                    torch.cuda._sleep(200_000)
+            torch.cuda.synchronize()
+        kernels = sorted(e.start_ns() for e in
+                         p.profiler.kineto_results.events()
+                         if e.device_type() == torch.autograd.DeviceType.CUDA
+                         and not e.is_user_annotation())
+        spans = [s for s in profiler.host_spans()["spans"]
+                 if s[0] == "sleep_probe"]
+        assert len(kernels) == len(spans) == 5, (kernels, spans)
+        offsets = [(k - t0, k - t1) for (_, t0, t1, _), k in
+                   zip(spans, kernels)]
+        assert all(k0 >= 0 and k1 <= 100_000 for k0, k1 in offsets), \
+            offsets
     finally:
         profiler.configure(enabled=saved[0], detail=saved[1])
         profiler.reset()

@@ -1,7 +1,8 @@
 """The port's device profiler (antidote_tpu_torch/obs/prof.py) held to
 what tests/unit/test_obs_prof.py pins for the JAX one: a disabled
 profiler is a passthrough that counts nothing, the signature counters
-count once per new argument signature, a sampled call's kernel span
+count once per new argument signature of a timed call (the port's
+census follows timed calls alone), a sampled call's kernel span
 joins its transaction's trace tree, unsampled calls record no span,
 the buffer high-watermark follows the largest output, a capture writes
 a trace file and measures completion, ``snapshot()`` has the JAX
@@ -96,6 +97,8 @@ def test_wrapper_preserves_name_and_semantics():
 
 
 def test_signature_counters_count_once_per_shape():
+    profiler.configure(detail=True)     # the census counts timed calls
+
     @kernel_span("t", name="miss_probe")
     def k(x):
         return x.sum()
@@ -114,6 +117,8 @@ def test_signature_counters_count_once_per_shape():
 
 
 def test_same_name_distinct_functions_each_count():
+    profiler.configure(detail=True)
+
     def make(mul):
         def body(x, _m=mul):
             return x * _m
@@ -129,6 +134,8 @@ def test_same_name_distinct_functions_each_count():
 
 def test_scalar_args_and_state_fields_key_the_signature():
     from antidote_tpu_torch.mat import store
+
+    profiler.configure(detail=True)
 
     @kernel_span("t", name="static_probe")
     def k(x, n: int):
@@ -216,6 +223,8 @@ def test_detail_mode_measures_every_call():
 
 
 def test_buffer_hwm_gauge_tracks_output_bytes():
+    profiler.configure(detail=True)     # the census counts timed calls
+
     @kernel_span("hwm_sub", name="hwm_probe")
     def k(x):
         return x * 2
@@ -255,7 +264,10 @@ def test_capture_writes_a_trace_and_measures_completion(tmp_path):
 def test_snapshot_keys_equal_the_jax_profilers():
     """The same calls through both packages' profilers: the snapshot
     and every kernel entry carry the same keys, and the counters the
-    same values."""
+    same values, both in detail mode (the port's census counts timed
+    calls alone)."""
+    profiler.configure(detail=True)
+    jprof.profiler.configure(detail=True)
 
     @kernel_span("t", name="parity_probe")
     def k(x, n: int):
@@ -351,6 +363,8 @@ def test_start_stop_profiling_through_the_api(tmp_path):
 
 
 def test_debug_endpoints_serve_prof_pipeline_and_health():
+    profiler.configure(detail=True)     # the census counts timed calls
+
     @kernel_span("t", name="http_probe")
     def k(x):
         return x + 1
