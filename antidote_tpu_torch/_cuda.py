@@ -1,5 +1,6 @@
 """Build and bind the port's hand-written CUDA kernels (every
-``csrc/*.cu``: the OR-Set kernels and the dependency gate's fixpoint).
+``csrc/*.cu``: the OR-Set kernels, the store's append and the
+dependency gate's fixpoint).
 
 The sources are compiled by one ``nvcc`` call for ``sm_90a`` into one
 shared library with a plain C interface, at first use, into
@@ -38,6 +39,8 @@ _SIGNATURES = {
                             _I64, _I, _I, _I, _P),
     "antidote_orset_fold": (_I, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
     "antidote_orset_gc": (_I, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
+    "antidote_ring_append": (_P, _P, _P, _I64, _P, _I, _P, _I, _P, _P, _P,
+                             _I64, _I64, _I, _I, _P),
     "antidote_gate_fixpoint": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _P),

@@ -1,7 +1,8 @@
 """The OR-Set materializer's CUDA kernels, their wrappers and their plain
-PyTorch versions (port of antidote_tpu/mat/pallas_kernels.py).
+PyTorch versions (port of antidote_tpu/mat/pallas_kernels.py), and the
+wrapper of the store's append kernel.
 
-Each wrapper takes the store's packed layout (mat/store.py
+Each OR-Set wrapper takes the store's packed layout (mat/store.py
 ``OrsetShardState``): ``dots`` int[K, E, D], ``ops`` int[K*L, 6+2D] with
 the columns [elem, is_add, dot_dc, dot_seq, op_dc, op_ct, obs_vv(D),
 op_ss(D)], ``valid`` bool[K*L].  int32 and int64 shards both go through
@@ -14,13 +15,19 @@ the kernels.
   plain tensor ops and calls it (replaces orset_read_hybrid).
 - :func:`orset_gc_packed`: the GC fold of the lanes stable at the GST
   (replaces orset_gc_packed).
+- :func:`ring_append`: every shard type's append epilogue, the rank of
+  each op's free lane and the row scatter (``csrc/store_kernels.cu``;
+  replaces no Pallas kernel: the JAX package's append is XLA's scatter).
+  Its plain version is ``store._scatter_rows_plain``, and
+  ``store._scatter_rows`` picks between the two by the ring's device.
 
-A wrapper given CPU tensors runs the kernel's plain version, and only
-then; given CUDA tensors it launches the kernel (``csrc/
-orset_kernels.cu``) or raises.  Each wrapper counts its launches in its
-``launches`` attribute.  The plain versions (``*_plain``) are the CPU
-path, the reference the kernels are held against on the card, and
-nothing else.
+An OR-Set wrapper given CPU tensors runs the kernel's plain version, and
+only then; given CUDA tensors it launches the kernel (``csrc/
+orset_kernels.cu``) or raises.  ``ring_append`` launches or raises: its
+plain version lives in mat/store.py, which imports this module.  Each
+wrapper counts its launches in its ``launches`` attribute.  The plain
+versions (``*_plain``) are the CPU path, the reference the kernels are
+held against on the card, and nothing else.
 """
 
 from __future__ import annotations
@@ -212,12 +219,80 @@ def orset_gc_packed(dots, ops, valid, gst):
     return new_dots, new_valid
 
 
+def _batch(name: str, t: torch.Tensor, b: int, dtypes, device):
+    if t.dtype not in dtypes or t.shape != (b,):
+        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))} "
+                        f"[{b}], got {t.dtype} {tuple(t.shape)}")
+    if t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous on {device}")
+
+
+def ring_append(ops, valid, n_lanes: int, key_idx, lane_off, rows,
+                active=None) -> torch.Tensor:
+    """bool overflow[B]: place each row of ``rows`` ([B, F] of the
+    ring's dtype) in its key's (``lane_off``+1)-th free lane of the ring
+    (``ops`` int32/int64 [K*L, F], ``valid`` bool[K*L], L =
+    ``n_lanes``) and mark the lane live, in place, with the contract of
+    ``store._scatter_rows``: overflowed ops are not stored, keys outside
+    [0, K) never, ``active`` (bool[B], optional) drops masked-off ops
+    from both.  Every op ranks against the bitmap as it was before the
+    batch.  ``key_idx`` and ``lane_off`` are int32 or int64; ``rows`` may
+    have any row stride.  Two launches a call, counted as one in
+    ``launches``; an empty batch launches nothing.  Never waits for the
+    card."""
+    if ops.dim() != 2 or ops.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"ops must be int32/int64 [K*L, F], got "
+                        f"{ops.dtype} {tuple(ops.shape)}")
+    n, f = ops.shape
+    if n_lanes < 1 or n < n_lanes or n % n_lanes:
+        raise ValueError(f"{n} ring rows do not make K >= 1 keys of "
+                         f"{n_lanes} lanes")
+    if valid.dtype != torch.bool or valid.shape != (n,):
+        raise ValueError(f"lane bitmap must be bool [{n}], got "
+                         f"{valid.dtype} {tuple(valid.shape)}")
+    dev = ops.device
+    if valid.device != dev or not (ops.is_contiguous()
+                                   and valid.is_contiguous()):
+        raise ValueError(f"the ring must be contiguous tensors on {dev}")
+    b = key_idx.shape[0] if key_idx.dim() == 1 else -1
+    index = (torch.int32, torch.int64)
+    _batch("key_idx", key_idx, b, index, dev)
+    _batch("lane_off", lane_off, b, index, dev)
+    if active is not None:
+        _batch("active", active, b, (torch.bool,), dev)
+    if rows.dtype != ops.dtype or rows.shape != (b, f):
+        raise ValueError(f"rows must be {ops.dtype} [{b}, {f}] like the "
+                         f"ring, got {rows.dtype} {tuple(rows.shape)}")
+    if rows.device != dev or (b > 0 and f > 1 and rows.stride(1) != 1):
+        raise ValueError(f"rows must lie on {dev}, each row contiguous")
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {dev}")
+    overflow = torch.empty((b,), dtype=torch.bool, device=dev)
+    if b == 0:
+        return overflow
+    target = torch.empty((b,), dtype=torch.int64, device=dev)
+    word = ops.element_size() // 4
+    with torch.cuda.device(dev):
+        _cuda.call("antidote_ring_append", ops.data_ptr(), valid.data_ptr(),
+                   rows.data_ptr(), rows.stride(0) * word,
+                   key_idx.data_ptr(), int(key_idx.dtype == torch.int64),
+                   lane_off.data_ptr(), int(lane_off.dtype == torch.int64),
+                   None if active is None else active.data_ptr(),
+                   overflow.data_ptr(), target.data_ptr(), b, n // n_lanes,
+                   n_lanes, f * word,
+                   torch.cuda.current_stream(dev).cuda_stream)
+    ring_append.launches += 1
+    return overflow
+
+
 orset_read_packed.launches = 0
 orset_fold_presence.launches = 0
 orset_gc_packed.launches = 0
+ring_append.launches = 0
 
 #: every kernel wrapper, for code that resets or reads the counters
-KERNELS = (orset_read_packed, orset_fold_presence, orset_gc_packed)
+KERNELS = (orset_read_packed, orset_fold_presence, orset_gc_packed,
+           ring_append)
 
 
 @kernel_span("mat.pallas")

@@ -177,6 +177,20 @@ def _scatter_rows(st, key_idx: torch.Tensor, lane_off: torch.Tensor,
     masked-off ops entirely: no scatter, no overflow.  Keys outside
     [0, K) (the ingest plane's padding) are never stored.
 
+    A CPU shard runs :func:`_scatter_rows_plain`; a shard on the card
+    runs the kernel pair behind gpu_kernels.ring_append, which raises on
+    any other device."""
+    if st.valid.device.type == "cpu":
+        return _scatter_rows_plain(st, key_idx, lane_off, rows, active)
+    return st, gpu_kernels.ring_append(st.ops, st.valid, st.n_lanes,
+                                       key_idx, lane_off, rows, active)
+
+
+def _scatter_rows_plain(st, key_idx: torch.Tensor, lane_off: torch.Tensor,
+                        rows: torch.Tensor,
+                        active: torch.Tensor | None = None):
+    """:func:`_scatter_rows` as plain tensor ops, on any device.
+
     The JAX version sends the dropped rows past the end, where XLA's
     mode="drop" skips them; torch raises on such an index, and a boolean
     filter would wait for the card.  So the scatter keeps all B rows and

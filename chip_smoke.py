@@ -25,8 +25,10 @@ Phases, each of which fails the run on any error or mismatch:
    K = 65,536, 65,549 (no tile divides it) and 1,000,000 keys, int32
    and int64 (the int64 shard holds the same history with every
    timestamp scaled by 2**20, past the int32 range), with a base
-   snapshot and a GST that folds some lanes and keeps others; equality
-   must be exact;
+   snapshot and a GST that folds some lanes and keeps others, and the
+   store's append kernel pair on a 65,536-op batch (K ops at the
+   smaller K) against the plain epilogue on copies of the same ring;
+   equality must be exact;
 4. the OR-Set superstep at full width (K = 1,000,000, B = 65,536, L = 8,
    E = 8, D = 8, 3 DCs) through entry.superstep, once on each read path
    (fused="auto": the packed read kernel; fused="hybrid": the fold
@@ -35,8 +37,9 @@ Phases, each of which fails the run on any error or mismatch:
    last three steps' ops stay in the ring).  The kernels' launch
    counters are set to 0 just before each path's timed steps and read
    just after; each path must launch its kernels once a step (the GC
-   kernel once a GC) and no other.  The two paths must leave the same
-   shard, and their final presence must equal the plain read's;
+   kernel once a GC, the append's pair once a step) and no other.  The
+   two paths must leave the same shard, and their final presence must
+   equal the plain read's;
 5. times: each kernel and its plain version with CUDA events at the
    superstep's final state, beside the kernel's bound; the append (which
    must not wait for the card): its time, the host's time in it and its
@@ -393,6 +396,7 @@ K_FULL, B_FULL, L, E, D, N_DCS = 1_000_000, 65_536, 8, 8, 8, 3
 WARMUP, STEPS, GC_EVERY = 2, 15, 4
 TIME_SCALE = 1 << 20          # int64 shards: µs-sized timestamps
 SOURCE = "antidote_tpu_torch/csrc/orset_kernels.cu"
+APPEND_SOURCE = "antidote_tpu_torch/csrc/store_kernels.cu"
 PALLAS = "antidote_tpu/mat/pallas_kernels.py"
 
 
@@ -514,6 +518,33 @@ def max_err(a, b):
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
+def append_inputs(st, seed):
+    """An append batch for ``st`` (min(K, B_FULL) ops, the superstep's
+    stream) as the store's epilogue takes it: (key_idx, lane_off,
+    rows)."""
+    K = st.dots.shape[0]
+    b = entry.make_batch(np.random.default_rng(seed), K, min(K, B_FULL), D,
+                         N_DCS, np.full(N_DCS, 1 << 20, dtype=np.int32),
+                         obs_lag=2, device=st.ops.device)
+    rows = store._rows(st.ops.dtype, b["elem_slot"], b["is_add"],
+                       b["dot_dc"], b["dot_seq"], b["op_dc"], b["op_ct"],
+                       b["obs_vv"], b["op_ss"])
+    return b["key_idx"], b["lane_off"], rows
+
+
+def append_pair(st, seed):
+    """The append kernel pair and the plain epilogue on copies of
+    ``st``'s ring with the same batch: (kernel's, plain's) outputs, each
+    [overflow, ops, valid]."""
+    key, off, rows = append_inputs(st, seed)
+    out = []
+    for scatter in (store._scatter_rows, store._scatter_rows_plain):
+        copy = replace(st, ops=st.ops.clone(), valid=st.valid.clone())
+        copy, ov = scatter(copy, key, off, rows)
+        out.append([ov, copy.ops, copy.valid])
+    return out
+
+
 def phase_kernels(device):
     """Phase 3: every kernel against its plain version, exactly.
     Returns each kernel's largest absolute difference (0)."""
@@ -522,6 +553,7 @@ def phase_kernels(device):
         st32, fr32 = filled_shard(K, seed=K % 97, device=device)
         ref_present = None
         for st, fr in ((st32, fr32), scaled_int64(st32, fr32)):
+            append_got, append_want = append_pair(st, seed=K % 89)
             # a GST between the base and the frontier: some lanes fold,
             # some survive
             gst = (st.base_vc + fr) // 2
@@ -534,6 +566,7 @@ def phase_kernels(device):
                     gk.orset_fold_presence(st.dots, st.ops, mask)],
                 "orset_gc_packed": list(
                     gk.orset_gc_packed(st.dots, st.ops, st.valid, gst)),
+                "ring_append": append_got,
             }
             torch.cuda.synchronize()
             want = {
@@ -543,6 +576,7 @@ def phase_kernels(device):
                 "orset_gc_packed": list(
                     gk.orset_gc_packed_plain(st.dots, st.ops, st.valid,
                                              gst)),
+                "ring_append": append_want,
             }
             nv_plain = want["orset_gc_packed"][1]
             folded = int(st.valid.sum()) - int(nv_plain.sum())
@@ -560,10 +594,11 @@ def phase_kernels(device):
                 ref_present = present
             elif not torch.equal(present, ref_present):
                 fail(f"K={K}: the int64 shard reads other than the int32")
-            print(f"[kernels] K={K} {st.dots.dtype}: 3 kernels equal their "
+            overflow = int(append_want[0].sum())
+            print(f"[kernels] K={K} {st.dots.dtype}: 4 kernels equal their "
                   f"plain versions; {folded} of {int(st.valid.sum())} lanes "
-                  f"folded, {int(present.sum())} elements present",
-                  flush=True)
+                  f"folded, {int(present.sum())} elements present, "
+                  f"{overflow} appended ops overflowed", flush=True)
         del st32
     return errs
 
@@ -622,9 +657,9 @@ def phase_superstep(device):
     # the kernels each path must launch, and launch no other
     expect = {
         "auto": {"orset_read_packed": STEPS, "orset_fold_presence": 0,
-                 "orset_gc_packed": gc_launches},
+                 "orset_gc_packed": gc_launches, "ring_append": STEPS},
         "hybrid": {"orset_read_packed": 0, "orset_fold_presence": STEPS,
-                   "orset_gc_packed": gc_launches},
+                   "orset_gc_packed": gc_launches, "ring_append": STEPS},
     }
     runs, summary = {}, {
         "K": K_FULL, "B": B_FULL, "L": L, "E": E, "D": D, "n_dcs": N_DCS,
@@ -762,7 +797,50 @@ def phase_times(st, frontier, by_path, errs):
         r = rows[-1]
         print(f"[time] {kname}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} "
               f"ms by bytes), plain {r['plain_ms']:.3f} ms", flush=True)
+    rows.append(append_row(st, by_path, errs))
     return rows, cuda_ms(lambda: gk.orset_read_hybrid(*args), 20)
+
+
+def append_row(st, by_path, errs, n=50):
+    """The append kernel pair and the plain epilogue on a superstep
+    batch at ``st``'s ring, each call on its own copy of the lane bitmap
+    (so every call places the same ops; the copies are made before the
+    timing).  Device ms a call with the card held asleep while the calls
+    are queued (``device_ms``), and the bound: each input byte read once
+    (keys, offsets, the keys' L lane bytes, the rows), each output byte
+    written once (the kept rows and their lane bytes, the overflow)."""
+    key, off, rows = append_inputs(st, seed=5)
+    L = st.n_lanes
+
+    def timed(scatter, calls):
+        # device_ms makes 2 warm-up calls and up to 6 attempts
+        valids = iter([st.valid.clone() for _ in range(6 * (calls + 2))])
+        ops = st.ops.clone()
+        return device_ms(lambda: scatter(replace(
+            st, ops=ops, valid=next(valids)), key, off, rows), calls)
+
+    ms, issue_us = timed(store._scatter_rows, n)
+    plain_ms, plain_issue_us = timed(store._scatter_rows_plain, 5)
+    ov = store._scatter_rows_plain(replace(
+        st, ops=st.ops.clone(), valid=st.valid.clone()), key, off, rows)[1]
+    b, kept = key.numel(), key.numel() - int(ov.sum())
+    need = (nbytes(key, off, rows) + b * L * st.valid.element_size()
+            + kept * (rows.shape[1] * rows.element_size() + 1) + b)
+    row = {"name": "ring_append", "route": "cuda", "source": APPEND_SOURCE,
+           "replaces": "none (the JAX package's append is XLA's scatter, "
+                       "antidote_tpu/mat/store.py:95)",
+           "launches": by_path["auto"]["ring_append"],
+           "launches_by_path": {f: c["ring_append"]
+                                for f, c in by_path.items()},
+           "max_abs_err": errs["ring_append"], "B": b, "kept": kept,
+           "ms": ms, "issue_us": issue_us, "plain_ms": plain_ms,
+           "plain_issue_us": plain_issue_us,
+           "bound_ms": need / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": None}
+    print(f"[time] ring_append: {ms:.4f} ms (bound {row['bound_ms']:.4f} "
+          f"ms by bytes, issue {issue_us:.1f} us), plain {plain_ms:.3f} ms "
+          f"(issue {plain_issue_us:.1f} us)", flush=True)
+    return row
 
 
 def events():

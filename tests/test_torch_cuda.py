@@ -21,7 +21,7 @@ installed (``--noconftest`` skips tests/conftest.py, which imports it):
 import warnings
 from collections import deque
 from contextlib import contextmanager
-from dataclasses import fields
+from dataclasses import fields, replace
 
 import numpy as np
 import pytest
@@ -77,7 +77,9 @@ def test_kernels_match_plain(cuda_device, dtype):
     gst = (st.base_vc + vc) // 2
     mask = gpu_kernels.read_mask(st.ops, st.valid, st.base_vc, st.has_base,
                                  vc, st.dots.shape[0]).reshape(-1)
-    before = [k.launches for k in gpu_kernels.KERNELS]
+    called = (gpu_kernels.orset_read_packed, gpu_kernels.orset_fold_presence,
+              gpu_kernels.orset_gc_packed)
+    before = [k.launches for k in called]
     pairs = [
         (gpu_kernels.orset_read_packed(*_args(st, vc)),
          gpu_kernels.orset_read_packed_plain(*_args(st, vc))),
@@ -88,8 +90,7 @@ def test_kernels_match_plain(cuda_device, dtype):
                                                gst)),
     ]
     torch.cuda.synchronize()
-    assert [k.launches for k in gpu_kernels.KERNELS] == [
-        n + 1 for n in before]
+    assert [k.launches for k in called] == [n + 1 for n in before]
     for got, want in pairs:
         assert got.device.type == "cuda"
         assert torch.equal(got, want)
@@ -114,6 +115,81 @@ def test_superstep_on_card_matches_cpu(cuda_device, fused):
         runs.append(out + [st.dots.cpu(), st.valid.cpu(), st.ops.cpu()])
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+def _append_case(case, name, L, dtype, device, K=61, seed=17):
+    """A shard of type ``name`` with L lanes whose ring is half full of
+    random rows, and an append batch for ``case``: (state, key_idx,
+    lane_off, rows, active).  Every case's batch holds a key repeated
+    more than L times; "range" adds keys -1, K and K+5, "active" masks
+    ops off (some that land, some that overflow), "empty" has none.
+    int32 rings take int32 keys and int64 offsets, int64 rings the
+    reverse and rows with a row stride wider than the row (as the
+    packed ingest's rows are)."""
+    t = store.SHARD_TYPES[name]
+    st = t.init(*((K, L, 8, 8) if t.slots else (K, L, 8)), dtype=dtype,
+                device=device)
+    rng = np.random.default_rng(seed)
+    n, f = st.ops.shape
+    st.ops.copy_(torch.from_numpy(rng.integers(0, 1 << 20, size=(n, f))))
+    st.valid.copy_(torch.from_numpy(rng.random(n) < 0.5))
+    if case == "empty":
+        key = np.zeros(0, dtype=np.int64)
+    else:
+        key = np.r_[rng.integers(0, K, size=3 * K), np.full(2 * L + 3, 7)]
+        if case == "range":
+            key = np.r_[key, [-1, K, K + 5] * (L + 1)]
+        key = rng.permutation(key)
+    b = len(key)
+    off = store.batch_lane_offsets(key)
+    kdt, odt = ((torch.int32, torch.int64) if dtype == torch.int32
+                else (torch.int64, torch.int32))
+    rows = torch.from_numpy(rng.integers(-(1 << 20), 1 << 20,
+                                         size=(b, f + 3)))
+    rows = rows.to(device=device, dtype=dtype)
+    rows = rows[:, 3:] if dtype == torch.int64 else rows[:, 3:].contiguous()
+    active = (torch.from_numpy(rng.random(b) < 0.6).to(device)
+              if case == "active" else None)
+    return (st, torch.from_numpy(key).to(device=device, dtype=kdt),
+            torch.from_numpy(off).to(device=device, dtype=odt), rows, active)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [8, 20])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", sorted(store.SHARD_TYPES))
+@pytest.mark.parametrize("case", ["repeat", "range", "active", "empty"])
+def test_ring_append_matches_plain(cuda_device, case, name, dtype, L):
+    """The append kernel pair against the plain epilogue on the same
+    inputs, on the card: ring rows, lane bitmap and overflow bit for
+    bit, and one launch counted a non-empty append."""
+    st, key, off, rows, active = _append_case(case, name, L, dtype,
+                                              cuda_device)
+    twin = replace(st, ops=st.ops.clone(), valid=st.valid.clone())
+    pre = st.valid.clone()
+    before = gpu_kernels.ring_append.launches
+    st, ov = store._scatter_rows(st, key, off, rows, active)
+    twin, want = store._scatter_rows_plain(twin, key, off, rows, active)
+    torch.cuda.synchronize()
+    assert gpu_kernels.ring_append.launches == before + (key.numel() > 0)
+    for got, exp in ((ov, want), (st.ops, twin.ops), (st.valid, twin.valid)):
+        assert got.dtype == exp.dtype and torch.equal(got, exp)
+    landed = int(st.valid.sum() - pre.sum())
+    if case == "empty":
+        assert ov.numel() == 0 and landed == 0
+        return
+    assert int(ov.sum()) > 0 and landed > 0
+    k = key.long()
+    inr = (k >= 0) & (k < pre.numel() // L)
+    if case == "range":
+        assert bool(ov[~inr].any())     # read key 0's or K-1's lanes
+    if case == "active":
+        lost = store._scatter_rows_plain(
+            replace(st, ops=st.ops.clone(), valid=pre.clone()), key, off,
+            rows)[1]
+        assert bool((lost & ~active).any())   # masked-off overflows
+        assert bool((~lost & ~active & inr).any())   # masked-off landings
+        assert not bool(ov[~active].any())
 
 
 @pytest.mark.cuda

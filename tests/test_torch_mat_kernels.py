@@ -164,6 +164,51 @@ def test_wrappers_reject_bad_inputs_and_count_no_cpu_launch():
 
 
 
+def _ring_args(**change):
+    """ring_append's arguments for a 4-key int32 ring of 8 lanes and 10
+    columns and a batch of 3 on the CPU, with ``change`` applied."""
+    ops = torch.zeros((32, 10), dtype=torch.int32)
+    args = dict(ops=ops, valid=torch.zeros(32, dtype=torch.bool),
+                n_lanes=8, key_idx=torch.tensor([0, 3, 3]),
+                lane_off=torch.tensor([0, 0, 1], dtype=torch.int32),
+                rows=torch.ones((3, 10), dtype=torch.int32), active=None)
+    return {**args, **{k: f(args) for k, f in change.items()}}
+
+
+@pytest.mark.parametrize("change, error, match", [
+    (dict(ops=lambda a: a["ops"].float()), TypeError, "int32/int64"),
+    (dict(ops=lambda a: a["ops"].t().contiguous().t()), ValueError,
+     "contiguous"),
+    (dict(valid=lambda a: a["valid"][::2], ops=lambda a: a["ops"][:16]),
+     ValueError, "contiguous"),
+    (dict(rows=lambda a: a["rows"][:, :9]), ValueError, r"\[3, 10\]"),
+    (dict(rows=lambda a: a["rows"].long()), ValueError, "like the ring"),
+    (dict(rows=lambda a: a["rows"].t().contiguous().t()), ValueError,
+     "each row contiguous"),
+    (dict(valid=lambda a: a["valid"].to(torch.int32)), ValueError,
+     "bitmap"),
+    (dict(n_lanes=lambda a: 5), ValueError, "lanes"),
+    (dict(key_idx=lambda a: a["key_idx"].float()), TypeError, "key_idx"),
+    (dict(lane_off=lambda a: a["lane_off"][:2]), TypeError, "lane_off"),
+    (dict(active=lambda a: torch.ones(3, dtype=torch.int32)), TypeError,
+     "active"),
+    (dict(), ValueError, "no kernel"),
+], ids=["ops-dtype", "ops-strided", "bitmap-strided", "row-width",
+        "row-dtype", "row-strided", "bitmap-dtype", "lanes", "key-dtype",
+        "batch-length", "active-dtype", "cpu"])
+def test_ring_append_refuses(change, error, match):
+    """The append kernel's wrapper refuses what the kernel does not take
+    before it needs the card, and on the CPU never falls back to the
+    plain version (a CPU shard reaches that through store._scatter_rows
+    alone): nothing launches, nothing is written."""
+    args = _ring_args(**change)
+    before = gpu_kernels.ring_append.launches
+    with pytest.raises(error, match=match):
+        gpu_kernels.ring_append(**args)
+    assert gpu_kernels.ring_append.launches == before
+    assert not bool(args["valid"].any())
+
+
 # ---------------------------------------------------------------------------
 # the other CRDT types' folds
 

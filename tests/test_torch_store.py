@@ -9,7 +9,7 @@ import torch
 
 import torch_parity as tp
 from antidote_tpu.mat import store as jstore
-from antidote_tpu_torch.mat import store
+from antidote_tpu_torch.mat import gpu_kernels, store, synth
 
 DTYPES = [torch.int32, torch.int64]
 
@@ -61,6 +61,36 @@ def test_free_lanes():
     for w, g in zip(want, got):
         _same(w, g)
     assert got[0].dtype == torch.int32
+
+
+@pytest.mark.parametrize("name", sorted(store.SHARD_TYPES))
+def test_cpu_append_takes_the_plain_path(name):
+    """On a CPU shard the append epilogue is the plain one (keys outside
+    [0, K), overflow and ``active`` included) and no kernel launches,
+    through the type's own append too."""
+    K, B = 11, 160
+    t = store.SHARD_TYPES[name]
+    dims = (K, tp.L, tp.E, tp.D) if t.slots else (K, tp.L, tp.D)
+    st, twin = (t.init(*dims, dtype=torch.int64, device="cpu")
+                for _ in range(2))
+    rng = np.random.default_rng(12)
+    key = rng.integers(-2, K + 3, size=B)
+    off = torch.from_numpy(store.batch_lane_offsets(key))
+    key = torch.from_numpy(key)
+    rows = torch.from_numpy(rng.integers(0, 99, size=(B, st.ops.shape[1])))
+    active = torch.from_numpy(rng.random(B) < 0.8)
+    before = gpu_kernels.ring_append.launches
+    st, ov = store._scatter_rows(st, key, off, rows, active)
+    twin, want = store._scatter_rows_plain(twin, key, off, rows, active)
+    for got, exp in ((ov, want), (st.ops, twin.ops), (st.valid, twin.valid)):
+        assert torch.equal(got, exp)
+    assert 0 < int(ov.sum()) < B
+    s = synth.orset_batch(rng, K, B, tp.D, 3, np.zeros(3, np.int32))
+    f = synth.type_fields(name, s)
+    f["lane_off"] = store.batch_lane_offsets(f["key_idx"])
+    t.append(st, *(torch.from_numpy(np.ascontiguousarray(f[k]))
+                   for k in t.fields))
+    assert gpu_kernels.ring_append.launches == before
 
 
 @pytest.mark.parametrize("key_idx", [
