@@ -1,5 +1,6 @@
 """The OR-Set replication superstep (port of ``_make_batch``, ``_step`` and
-``entry`` in the repository root's ``__graft_entry__.py``).
+``entry`` in the repository root's ``__graft_entry__.py``), and the RGA
+document's step (:func:`rga_step`).
 
 One superstep appends a batch of committed ops into the shard's ring
 lanes, folds every op stable at the batch's commit frontier into the
@@ -19,7 +20,7 @@ import torch
 
 from antidote_tpu_torch import resolve_device
 from antidote_tpu_torch.clocks import dense
-from antidote_tpu_torch.mat import store
+from antidote_tpu_torch.mat import rga_store, store
 from antidote_tpu_torch.mat.synth import orset_batch
 from antidote_tpu_torch.obs.prof import profiler
 
@@ -66,6 +67,27 @@ def superstep(st: store.OrsetShardState, batch: dict, gc: bool = True,
             st = store.orset_gc_full(st, frontier, fused=fused)
         present = store.orset_read_full(st, frontier, fused=fused)
         return st, present, overflow
+
+
+def rga_step(st: rga_store.RgaStoreState, ins_cols, del_cols, read_vc,
+             gst=None):
+    """One step of an RGA document's replica, with the store calls
+    ``device_plane.RgaPlane`` makes, in its order: the block's append
+    (``rga_append_coalesced``: host columns, one pinned upload), the
+    fold at the GST ``gst`` (a host int64[D]) when one is given, and
+    the read at the snapshot ``read_vc`` (int64[D] on the state's
+    device).  Returns (state, ok, (lam, act, elem, vis, n)): ``ok`` a
+    0-d bool, False where the window had no room and the block was not
+    appended; the whole document in order, tombstones included
+    (``rga_read``).  Waits for the card only in the fold
+    (``rga_fold_host`` reads the counters).  While the kernel profiler
+    is timing, the step and its fold are host spans (obs/prof.py)."""
+    with profiler.span("rga_step"):
+        st, ok = rga_store.rga_append_coalesced(st, ins_cols, del_cols)
+        if gst is not None:
+            with profiler.span("rga_step.fold"):
+                st = rga_store.rga_fold_host(st, gst)
+        return st, ok, rga_store.rga_read(st, read_vc)
 
 
 def entry(K: int = 8192, B: int = 1024, D: int = 8, n_dcs: int = 3,

@@ -32,9 +32,11 @@ sort is stable (``jnp.argsort`` is; ``torch.argsort`` is not unless
 asked), XLA's ``mode="drop"`` scatters become :func:`set_drop` (a spare
 slot sliced off: torch raises on an index past the end, and a boolean
 filter would wait for the card), and the returned dtypes are those JAX
-gives under x64 (argsort indices int64, searchsorted int32).  The JAX
-version's ``kernel_span`` profiling decorator comes with the port's
-``obs/`` modules.
+gives under x64 (argsort indices int64, searchsorted int32).  The
+merges carry ``obs/prof.py``'s ``@kernel_span("mat.rga")``, as the JAX
+version's do: timed in ``detail`` mode when called alone, passed
+straight through when called from a wrapped store function (the
+store's fold calls :func:`rga_merge_full`).
 """
 
 from __future__ import annotations

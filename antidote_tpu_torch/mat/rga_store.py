@@ -43,8 +43,13 @@ neither do :func:`rga_read` and :func:`rga_fold`.
 :func:`rga_append_padded` uploads each column on its own and
 :func:`rga_fold_host` reads the counters to the host, as the JAX ones
 do.  :func:`rga_append_coalesced` counts its dispatch in
-the INGEST_* metrics (``ingest.note_dispatch``); the JAX functions'
-``kernel_span`` profiling is not ported yet.
+the INGEST_* metrics (``ingest.note_dispatch``).  The JAX functions'
+``kernel_span`` profiling is ported: the device entry points carry
+``obs/prof.py``'s ``@kernel_span("mat.rga")``, so in ``detail`` mode
+each call of :func:`rga_append_packed`, :func:`rga_read` and
+:func:`rga_fold` is timed on the card (a CUDA event pair) and kept as
+a host span under its name; a call from inside another wrapped call
+(``rga_append`` under ``rga_append_packed``) passes straight through.
 """
 
 from __future__ import annotations

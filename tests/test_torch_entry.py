@@ -1,7 +1,9 @@
 """The port's superstep (antidote_tpu_torch.entry) against the JAX store
 driven step by step, starting from a state the JAX package built and
-carried across with mat.convert.state_from_numpy; plus the package's
-import isolation and its refusal to run on the CPU unasked."""
+carried across with mat.convert.state_from_numpy; the RGA document's
+step against the JAX RGA store's same calls over a 3-DC history; plus
+the package's import isolation and its refusal to run on the CPU
+unasked."""
 
 import os
 import subprocess
@@ -14,6 +16,7 @@ import torch
 
 import torch_parity as tp
 from antidote_tpu.clocks import dense as jdense
+from antidote_tpu.mat import rga_store as jrga
 from antidote_tpu.mat import store as jstore
 from antidote_tpu_torch import entry
 from antidote_tpu_torch.api import AntidoteGPU
@@ -74,6 +77,44 @@ def test_entry_runs_like_the_jax_step():
     np.testing.assert_array_equal(np.asarray(jpres), present.numpy())
     tp.assert_state_equal(jst, st)
     assert present.dtype == torch.bool and present.shape == (128, 8)
+
+
+@pytest.mark.parametrize("seed", [2 ** 31 + 1, 2 ** 31 + 2])
+def test_rga_step_matches_jax(seed):
+    """``entry.rga_step`` makes the JAX RGA store's calls in the same
+    order (``rga_append_coalesced``, ``rga_fold_host`` at the GST when
+    one is given, ``rga_read`` at the snapshot): every output and the
+    whole state equal after each step, from a base both built alike,
+    over a 3-DC history small enough for the JAX store's jit on the
+    CPU (a base of ~500 ops, then 16 steps of 64, a fold every 4th)."""
+    chunks, steps = tp.dc_history(seed)
+    shape = dict(pb=1024, nw=512, md=256, n_dcs=3, actor_bits=8)
+    jst = jrga.rga_store_init(**shape)
+    tst = rga_store.rga_store_init(**shape, device="cpu")
+    for ins, dl, vc in chunks:
+        jst, _ = jrga.rga_append_coalesced(jst, ins, dl)
+        jst = jrga.rga_fold_host(jst, vc)
+        tst, _ = rga_store.rga_append_coalesced(tst, ins, dl)
+        tst = rga_store.rga_fold_host(tst, vc)
+    tp.assert_state_equal(jst, tst)
+    folds = 0
+    for ins, dl, rv, gst in steps:
+        jst, jok = jrga.rga_append_coalesced(jst, ins, dl)
+        if gst is not None:
+            jst = jrga.rga_fold_host(jst, gst)
+            folds += 1
+        jout = jrga.rga_read(jst, jnp.asarray(rv))
+        tst, tok, tout = entry.rga_step(tst, ins, dl, torch.from_numpy(rv),
+                                        gst)
+        tp.same(jok, tok)
+        assert bool(tok)
+        assert len(jout) == len(tout) == 5
+        for a, b in zip(jout, tout):
+            tp.same(a, b)
+        tp.assert_state_equal(jst, tst)
+    # the window held the newest blocks past the read's snapshot
+    assert folds == 4 and int(tst.wn) > 0 and int(tout[4]) < \
+        int(tst.bn) + int(tst.wn)
 
 
 def test_state_from_numpy_copies():

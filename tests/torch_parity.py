@@ -166,6 +166,97 @@ def replica_trace(rng, n_steps, n_replicas=4, p_delete=0.15, p_sync=0.1):
     return inserts, deletes
 
 
+def dc_history(seed, n_dcs=3, ops=(22, 21, 21), fork=9, steps=16, lag=2,
+               gst_lag=4, fold_every=4, chunk=128, p_delete=0.3):
+    """A causal editing history of one document over ``n_dcs`` DCs, as
+    DC 0 receives it, in the RGA store's append columns.  Each tick,
+    every DC first receives the other DCs' ops of ``lag`` ticks before,
+    then its one author (actor k + 1) makes ``ops[k]`` ops: a delete of
+    a random vertex still visible there (``p_delete``), else an insert
+    after a random vertex seen there (or the head).  An op's Lamport
+    time is one more than the largest its DC has seen, so the DCs'
+    concurrent inserts share Lamport times.  DC 0's block of tick t is
+    the others' ops of t - lag, then its own.
+
+    Returns (chunks, steps): the blocks before tick ``fork`` cut into
+    ``chunk``-op pieces, each (ins, dels, the frontier of the commit
+    VCs so far), and each later tick's (ins, dels, read VC, GST or
+    None): the read at DC 0's snapshot of the tick before, the GST
+    (every DC's commits ``gst_lag`` ticks old) every ``fold_every``-th
+    step."""
+    rng = np.random.default_rng(seed)
+    n = n_dcs
+    lam, known = [0] * n, [[0] * n for _ in range(n)]
+    seen = [[(0, 0)] for _ in range(n)]
+    vis = [set() for _ in range(n)]
+    made, snap0, ct_end = [], [], []
+    for t in range(fork + steps):
+        mine = []
+        for k in range(n):
+            if t >= lag:
+                for j in range(n):
+                    for r in made[t - lag][j] if j != k else ():
+                        lam[k] = max(lam[k], r[2])
+                        known[k][j] = max(known[k][j], r[8])
+                        if r[0]:
+                            vis[k].discard((r[3], r[4]))
+                        else:
+                            seen[k].append((r[3], r[4]))
+                            vis[k].add((r[3], r[4]))
+            rows = []
+            for _ in range(ops[k]):
+                ss = list(known[k])
+                lam[k] += 1
+                known[k][k] += 1
+                if vis[k] and rng.random() < p_delete:
+                    v = sorted(vis[k])[int(rng.integers(len(vis[k])))]
+                    vis[k].discard(v)
+                    rows.append([1, k, lam[k], *v, 0, 0, 0])
+                else:
+                    ref = seen[k][int(rng.integers(len(seen[k])))]
+                    v = (lam[k], k + 1)
+                    seen[k].append(v)
+                    vis[k].add(v)
+                    rows.append([0, k, lam[k], *v, *ref,
+                                 32 + int(rng.integers(95))])
+                rows[-1] += [known[k][k]] + ss
+            mine.append(rows)
+        made.append(mine)
+        snap0.append(list(known[0]))
+        ct_end.append([known[k][k] for k in range(n)])
+
+    def block0(t):
+        rows = [r for j in range(1, n) for r in made[t - lag][j]] \
+            if t >= lag else []
+        return np.asarray(rows + made[t][0], np.int64)
+
+    def columns(b):
+        i32 = np.int32
+        ins, dl = b[b[:, 0] == 0], b[b[:, 0] == 1]
+        return ((ins[:, 3].astype(i32), ins[:, 4].astype(i32),
+                 ins[:, 5].astype(i32), ins[:, 6].astype(i32),
+                 ins[:, 7].astype(i32), ins[:, 1].astype(i32),
+                 ins[:, 8].copy(), np.ascontiguousarray(ins[:, 9:])),
+                (dl[:, 3].astype(i32), dl[:, 4].astype(i32),
+                 dl[:, 1].astype(i32), dl[:, 8].copy(),
+                 np.ascontiguousarray(dl[:, 9:])))
+
+    base = np.concatenate([block0(t) for t in range(fork)])
+    cvc = base[:, 9:].copy()
+    cvc[np.arange(len(base)), base[:, 1]] = base[:, 8]
+    front = np.maximum.accumulate(cvc, axis=0)
+    chunks = [columns(base[lo:lo + chunk])
+              + (front[min(lo + chunk, len(base)) - 1],)
+              for lo in range(0, len(base), chunk)]
+    later = []
+    for j, t in enumerate(range(fork, fork + steps)):
+        gst = np.asarray(ct_end[t - gst_lag], np.int64) \
+            if (j + 1) % fold_every == 0 else None
+        later.append(columns(block0(t))
+                     + (np.asarray(snap0[t - 1], np.int64), gst))
+    return chunks, later
+
+
 def merge_fields(inserts, deletes, pad=0, del_pad=0):
     """rga_merge's keyword arrays for explicit insert and delete tuples,
     with ``pad`` padding insert lanes and ``del_pad`` padding delete
