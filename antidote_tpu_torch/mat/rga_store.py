@@ -50,16 +50,31 @@ each call of :func:`rga_append_packed`, :func:`rga_read` and
 :func:`rga_fold` is timed on the card (a CUDA event pair) and kept as
 a host span under its name; a call from inside another wrapped call
 (``rga_append`` under ``rga_append_packed``) passes straight through.
+
+Where the JAX version jits :func:`rga_read` into one XLA program, the
+port issues its ~400 operations one by one on the CPU, and on the card
+replays them as one CUDA graph (:class:`_ReadGraph`): captured at a
+shape's first read, without waiting for the card, then replayed.  Each
+read copies the state and the snapshot into the graph's inputs and its
+results out to fresh tensors, so states of any address share a graph
+and a result outlives the next read.  A device keeps at most
+``GRAPHS_PER_DEVICE`` graphs and drops one for a new shape only once
+it has gone ``GRAPH_IDLE_READS`` reads unused; until then a new
+shape's read runs the eager body on the card, so shapes read in turn
+cannot make every read a capture.  ``read_graph_events`` counts the
+captures, replays and eager reads on the card.
 """
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
-from antidote_tpu_torch import resolve_device
+from antidote_tpu_torch import resolve_device, stats
 from antidote_tpu_torch.clocks import dense
 from antidote_tpu_torch.mat import ingest, rga_kernel
 from antidote_tpu_torch.mat.rga_kernel import (
@@ -323,7 +338,20 @@ def rga_read(st: RgaStoreState, read_vc):
     int32[PB+NW] arrays in document order INCLUDING tombstones (vis
     False), n = number of present vertices — i.e. exactly the host
     oracle's state tuple (crdt/rga.py).  Requires read_vc >= the fold
-    horizon (every base row is in-snapshot by construction)."""
+    horizon (every base row is in-snapshot by construction).
+
+    On the card the read replays its shape's CUDA graph (the results
+    are the caller's own tensors), or runs :func:`_read_eager` there
+    while the device's graphs are all in use (:class:`_ReadGraphs`);
+    on the CPU it runs :func:`_read_eager`."""
+    if st.wn.device.type == "cuda":
+        return _READ_GRAPHS.read(st, read_vc)
+    return _read_eager(st, read_vc)
+
+
+def _read_eager(st: RgaStoreState, read_vc):
+    """:func:`rga_read`'s body, one torch operation at a time: the CPU
+    path, and what :class:`_ReadGraph` captures."""
     nw, pb = st.nw, st.pb
     bits = st.actor_bits
     dev = st.wn.device
@@ -424,6 +452,172 @@ def rga_read(st: RgaStoreState, read_vc):
     elem_out = torch.where(present, elems[perm], 0)
     n = torch.sum(present, dtype=torch.int32)
     return lam, act, elem_out, vis, n
+
+
+#: the state fields :func:`_read_eager` reads (``bparent`` it does not)
+_READ_FIELDS = ("buid", "belem", "blive", "bsub_end", "bn", "bsort_uid",
+                "bsort_pos", "ckey", "cpos", "wlam", "wact", "wrlam",
+                "wract", "welem", "wdc", "wct", "wss", "wn", "dlam", "dact",
+                "ddc", "dct", "dss", "dn")
+
+
+def _copy_grouped(dst, src) -> None:
+    """``d.copy_(s)`` for each pair, one ``_foreach_copy_`` a pair of
+    dtypes: a launch or two on the card in place of one a tensor."""
+    groups = {}
+    for d, s in zip(dst, src):
+        ds, ss = groups.setdefault((d.dtype, s.dtype), ([], []))
+        ds.append(d)
+        ss.append(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
+
+
+#: the captured reads a device keeps at most
+GRAPHS_PER_DEVICE = 4
+#: the reads on the card that a captured read must go unused before a
+#: new shape may take its place.  A capture costs about 20 eager reads
+#: (98-117 ms against ~5 ms at 2**18 base rows), so however shapes
+#: follow one another, a device spends at most ``GRAPHS_PER_DEVICE``
+#: captures in this many reads
+GRAPH_IDLE_READS = 512
+
+#: the reads on the card by event
+read_graph_events = stats.Counter(
+    "antidote_rga_read_graph_total",
+    "RGA store reads on the card by CUDA-graph event: capture (a "
+    "shape's first read recorded, then replayed), replay, or eager (the "
+    "device's graphs all in use)", labels=("event",))
+
+
+class _ReadGraph:
+    """:func:`_read_eager` captured as one CUDA graph for one shape
+    (PB, NW, MD, D, actor bits) and one stream.
+
+    The graph reads static input tensors and writes static outputs.
+    :meth:`run` copies the caller's state and snapshot into the inputs,
+    replays, and copies the outputs into fresh tensors, all on the
+    stream and under ``lock``, so readers of one shape share the graph
+    in stream order and no result is overwritten by a later replay.
+    :meth:`capture` runs under ``lock`` too, and waits for the card
+    nowhere: a warm-up read and the capture run on a side stream that
+    waits on the caller's."""
+
+    def __init__(self, used: int):
+        self.lock = threading.Lock()
+        #: the cache's count of reads at this graph's last read
+        self.used = used
+        self.graph = None
+
+    def capture(self, st: RgaStoreState, read_vc, stream) -> None:
+        dev = st.wn.device
+        self.inputs = [torch.empty_like(getattr(st, f)) for f in _READ_FIELDS]
+        self.read_vc = torch.empty((st.d,), dtype=torch.int64, device=dev)
+        # bparent is never read: a zero-row stand-in, not a stale tensor
+        self.state = replace(st, bparent=st.bparent.new_empty((0,)),
+                             **dict(zip(_READ_FIELDS, self.inputs)))
+        self._stage(st, read_vc)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(stream)
+        with torch.cuda.device(dev), torch.cuda.stream(side):
+            # the warm-up does lazy set-up (kernel loads, sort scratch)
+            # outside the capture
+            _read_eager(self.state, self.read_vc)
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.outputs = _read_eager(self.state, self.read_vc)
+            finally:
+                graph.capture_end()
+        # the next staging must not overwrite inputs the warm-up reads
+        stream.wait_stream(side)
+        self.graph = graph
+
+    def _stage(self, st: RgaStoreState, read_vc) -> None:
+        _copy_grouped(self.inputs + [self.read_vc],
+                      [getattr(st, f) for f in _READ_FIELDS] + [read_vc])
+
+    def run(self, st: RgaStoreState, read_vc):
+        with self.lock:
+            if self.graph is None:
+                raise RuntimeError("the RGA read's CUDA graph of this "
+                                   "shape failed to capture")
+            self._stage(st, read_vc)
+            self.graph.replay()
+            out = [torch.empty_like(o) for o in self.outputs]
+            _copy_grouped(out, self.outputs)
+        return tuple(out)
+
+
+class _ReadGraphs:
+    """The process's captured reads by (device, stream, shape), at most
+    ``GRAPHS_PER_DEVICE`` a device.
+
+    A shape's first read captures where its device has room.  A full
+    device drops its least recently used graph for a new shape only
+    once that graph has gone ``GRAPH_IDLE_READS`` reads unused; until
+    then the new shape reads eagerly.  So shapes read in turn keep the
+    graphs they hold and the others read eagerly, and a document grown
+    out of a shape leaves its graph to the next.  A capture runs outside
+    the cache's lock, under its graph's own, so only readers of that
+    shape wait for it.  A dropped graph may still be running: CUDA frees
+    an executable graph in flight when it completes; the memory pool it
+    captured into serves other allocations once ``empty_cache`` or an
+    out-of-memory retry releases it."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._graphs: "OrderedDict[tuple, _ReadGraph]" = OrderedDict()
+        self._reads = 0
+
+    def read(self, st: RgaStoreState, read_vc):
+        dev = st.wn.device
+        stream = torch.cuda.current_stream(dev)
+        key = (dev.index, stream.cuda_stream, st.pb, st.nw, st.md, st.d,
+               st.actor_bits)
+        with self._lock:
+            self._reads += 1
+            g = self._graphs.get(key)
+            if g is not None:
+                event = "replay"
+                g.used = self._reads
+                self._graphs.move_to_end(key)
+            elif self._make_room(dev.index):
+                event = "capture"
+                g = self._graphs[key] = _ReadGraph(self._reads)
+                g.lock.acquire()
+            else:
+                event = "eager"
+        read_graph_events.inc(event=event)
+        if g is None:
+            return _read_eager(st, read_vc)
+        if event == "capture":
+            try:
+                g.capture(st, read_vc, stream)
+            except BaseException:
+                with self._lock:
+                    if self._graphs.get(key) is g:
+                        del self._graphs[key]
+                raise
+            finally:
+                g.lock.release()
+        return g.run(st, read_vc)
+
+    def _make_room(self, index) -> bool:
+        """Whether device ``index`` may take one more graph: dropping its
+        least recently used graphs over the cap if each has gone
+        ``GRAPH_IDLE_READS`` reads unused, else none."""
+        mine = [k for k in self._graphs if k[0] == index]
+        over = mine[:max(len(mine) - GRAPHS_PER_DEVICE + 1, 0)]
+        if any(self._reads - self._graphs[k].used <= GRAPH_IDLE_READS
+               for k in over):
+            return False
+        for k in over:
+            del self._graphs[k]
+        return True
+
+
+_READ_GRAPHS = _ReadGraphs()
 
 
 @kernel_span("mat.rga")

@@ -3,6 +3,9 @@ version on the card, the superstep, every shard type's store, the packed
 ingest plane, the RGA merge and store and the live device plane of every
 CRDT type on the card against the same calls on the CPU, the appends,
 purges, RGA reads and folds that must never wait for the card, the
+RGA read's CUDA graph against its eager body (folds, growth, restores,
+results that outlive later reads, two documents in turns, one capture a
+shape, a cache that shapes read in turn cannot thrash), the
 device plane's waits (one a flush chunk, one a read), the dependency
 gate's fixpoint kernel against its plain version and the gate on the
 card against the gate on the CPU (its ring updates without a wait, its
@@ -393,6 +396,176 @@ def test_rga_append_read_fold_never_wait_for_the_card(cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     assert bool(ok) and int(n) == 200 and int(st.wn) == sum(
         len(ins[0]) for ins, _dl, _hi in blocks[:3]) - 200
+
+
+def _rga_clone(st):
+    return replace(st, **{f.name: getattr(st, f.name).clone()
+                          for f in fields(st) if f.name != "actor_bits"})
+
+
+def _rga_doc(device, seed, n_blocks, pb=1024, nw=512, md=256):
+    """A document of ``_rga_blocks(seed=seed)``'s first blocks, a fold
+    every 2 blocks as ``_rga_run`` (a base that never grows); returns
+    (state, the last stamp)."""
+    _tr, blocks = _rga_blocks(seed=seed)
+    st = rga_store.rga_store_init(pb, nw, md, device=device)
+    for i, (ins, dl, hi) in enumerate(blocks[:n_blocks]):
+        st, _ok = rga_store.rga_append_coalesced(st, ins, dl)
+        if i % 2 == 1:
+            st = rga_store.rga_fold_host(st, hi - 96)
+    return st, hi
+
+
+def _rga_snapshots(device, hi):
+    return [torch.tensor(rv, dtype=torch.int64, device=device)
+            for rv in (_LATEST, [hi - 50])]
+
+
+def _rga_equal(got, want):
+    assert len(got) == len(want) == 5
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _rga_graph_events():
+    c = rga_store.read_graph_events
+    return tuple(c.value(event=e) for e in ("capture", "replay", "eager"))
+
+
+@pytest.fixture
+def rga_graphs(monkeypatch):
+    """A fresh cache of the read's CUDA graphs, so the first read of a
+    shape here captures."""
+    graphs = rga_store._ReadGraphs()
+    monkeypatch.setattr(rga_store, "_READ_GRAPHS", graphs)
+    return graphs
+
+
+@pytest.mark.cuda
+def test_rga_graph_read_equals_eager(cuda_device, rga_graphs):
+    """The read replayed as a CUDA graph equals its eager body bit for
+    bit after every block of a seeded document, across folds, a base
+    grown to a new PB (a second capture) and a restore of an earlier
+    clone whose blocks are then appended again."""
+    _tr, blocks = _rga_blocks()
+    st = rga_store.rga_store_init(256, 512, 256, device=cuda_device)
+    saved, pbs = None, set()
+    for i, (ins, dl, hi) in enumerate(blocks + blocks[4:7]):
+        if i == len(blocks):
+            st = _rga_clone(saved)
+        st, ok = rga_store.rga_append_coalesced(st, ins, dl)
+        assert bool(ok)
+        if i % 2 == 1:
+            st = rga_store.rga_fold_host(st, hi - 96)
+        if i == 3:
+            saved = _rga_clone(st)
+        if i == 5:
+            st = rga_store.rga_grow(st, pb=2 * st.pb)
+        pbs.add(st.pb)
+        for rv in _rga_snapshots(cuda_device, hi):
+            _rga_equal(rga_store.rga_read(st, rv),
+                       rga_store._read_eager(st, rv))
+    assert len(pbs) >= 2 and saved.pb in pbs
+
+
+@pytest.mark.cuda
+def test_rga_graph_read_results_outlive_later_reads(cuda_device,
+                                                    rga_graphs):
+    """A read's five tensors are the caller's own: three later reads of
+    another document of the same shape leave them as they were."""
+    a, hi = _rga_doc(cuda_device, seed=2, n_blocks=6)
+    b, _ = _rga_doc(cuda_device, seed=3, n_blocks=4)
+    assert (a.pb, a.nw, a.md, a.d) == (b.pb, b.nw, b.md, b.d)
+    rv = _rga_snapshots(cuda_device, hi)[0]
+    got = rga_store.rga_read(a, rv)
+    kept = [x.clone() for x in got]
+    for _ in range(3):
+        other = rga_store.rga_read(b, rv)
+    assert not torch.equal(other[2], got[2])
+    _rga_equal(got, kept)
+    _rga_equal(got, rga_store._read_eager(a, rv))
+
+
+@pytest.mark.cuda
+def test_rga_graph_read_two_documents_interleaved(cuda_device, rga_graphs):
+    """Two documents of one shape share a graph: appended and read in
+    turns, every read equals its own document's eager read."""
+    docs = {s: (_rga_blocks(seed=s)[1], rga_store.rga_store_init(
+        1024, 512, 256, device=cuda_device)) for s in (2, 4)}
+    got = []
+    for i in range(8):
+        for s, (blocks, st) in list(docs.items()):
+            ins, dl, hi = blocks[i]
+            st, ok = rga_store.rga_append_coalesced(st, ins, dl)
+            assert bool(ok)
+            if i % 2 == 1:
+                st = rga_store.rga_fold_host(st, hi - 96)
+            docs[s] = (blocks, st)
+            for rv in _rga_snapshots(cuda_device, hi):
+                got.append((rga_store.rga_read(st, rv),
+                            rga_store._read_eager(st, rv)))
+    assert len(rga_graphs._graphs) == 1
+    for g, want in got:
+        _rga_equal(g, want)
+
+
+@pytest.mark.cuda
+def test_rga_graph_read_captures_once_a_shape(cuda_device, rga_graphs):
+    """The counter shows one capture a shape (and a stream) and a
+    replay for every later read, and no eager read."""
+    a, hi = _rga_doc(cuda_device, seed=2, n_blocks=4)
+    b = rga_store.rga_grow(a, pb=2 * a.pb)
+    rv = _rga_snapshots(cuda_device, hi)[0]
+    c0, r0, e0 = _rga_graph_events()
+    for st in (a, a, b, a, b, a):
+        rga_store.rga_read(st, rv)
+    assert _rga_graph_events() == (c0 + 2, r0 + 4, e0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rga_store.rga_read(a, rv)
+        rga_store.rga_read(a, rv)
+    torch.cuda.current_stream().wait_stream(side)
+    assert _rga_graph_events() == (c0 + 3, r0 + 5, e0)
+
+
+@pytest.mark.cuda
+def test_rga_graph_read_cache_cannot_thrash(cuda_device, rga_graphs,
+                                            monkeypatch):
+    """Six shapes read in turn, four rounds, with room for four graphs:
+    four captures in all, the two other shapes read eagerly, every read
+    equal to the eager body's, and none waits for the card.  A graph
+    gone more than ``GRAPH_IDLE_READS`` reads unused then gives its
+    place to a shape read again and again."""
+    monkeypatch.setattr(rga_store, "GRAPH_IDLE_READS", 8)
+    assert rga_store.GRAPHS_PER_DEVICE == 4
+    a, hi = _rga_doc(cuda_device, seed=2, n_blocks=4)
+    grow = rga_store.rga_grow
+    shapes = [a, grow(a, pb=2 * a.pb), grow(a, pb=4 * a.pb),
+              grow(a, nw=2 * a.nw), grow(a, md=2 * a.md),
+              grow(a, pb=2 * a.pb, nw=2 * a.nw)]
+    assert len({(st.pb, st.nw, st.md) for st in shapes}) == 6
+    rv = _rga_snapshots(cuda_device, hi)[1]
+    c0, r0, e0 = _rga_graph_events()
+    got = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _round in range(4):
+            for st in shapes:
+                got.append((st, rga_store.rga_read(st, rv)))
+        rr = _rga_graph_events()
+        # reads 19-22 last used a-d; at read 28, a has gone 9 unused
+        for _ in range(6):
+            got.append((shapes[4], rga_store.rga_read(shapes[4], rv)))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert rr == (c0 + 4, r0 + 12, e0 + 8)
+    assert _rga_graph_events() == (c0 + 5, r0 + 14, e0 + 11)
+    assert {k[2:5] for k in rga_graphs._graphs} == {
+        (st.pb, st.nw, st.md) for st in shapes[1:5]}
+    for st, g in got:
+        _rga_equal(g, rga_store._read_eager(st, rv))
 
 
 PLANE_TYPES = ["counter_pn", "set_aw", "register_mv", "register_lww",

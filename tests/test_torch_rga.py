@@ -3,9 +3,10 @@ mat/rga_store.py) against the JAX package's, on the CPU: the one-shot
 merge on synthetic and replica-simulated logs, the incremental base +
 window store driven block by block with lagged folds (every state field
 compared after each append and fold, both reads at the latest and at a
-past snapshot), the window-full refusal, the host-side regrades, and a
-document built by JAX carried across with state_from_numpy.  Equality
-is exact: values and dtypes."""
+past snapshot), the window-full refusal, the host-side regrades, a
+document built by JAX carried across with state_from_numpy, and the
+read's CPU path (its eager body, no CUDA graph).  Equality is exact:
+values and dtypes."""
 
 from dataclasses import fields
 
@@ -370,3 +371,91 @@ def test_jax_document_continues_in_the_port():
         reads_equal(jst, tst, LATEST)
     jst, tst = fold_both(jst, tst, n + m + 1)
     assert torch.equal(reads_equal(jst, tst, LATEST), oneshot_doc(tr, n, m))
+
+
+# -- the read's paths ---------------------------------------------------
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_cpu_read_runs_the_eager_body(seed):
+    """On the CPU ``rga_read`` runs its eager body: the CUDA-graph
+    counter does not move, and on a seeded document (a folded base and
+    a window with deletes) every output equals the eager body's called
+    directly and the JAX package's, at the latest and a past snapshot."""
+    jst, _tr = _jax_doc(seed=seed)
+    tst = to_port(jst)
+    counter = trs.read_graph_events
+    events = ("capture", "replay", "eager")
+    before = [counter.value(event=e) for e in events]
+    for rv in (LATEST, np.array([150], np.int64)):
+        got = trs.rga_read(tst, _t(rv))
+        want = trs._read_eager(tst, _t(rv))
+        assert len(got) == len(want) == 5
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        same_out(jrs.rga_read(jst, _j(rv)), got)
+    assert [counter.value(event=e) for e in events] == before
+
+
+def test_grouped_copy_copies_every_pair():
+    """The graph read's staging copy: each destination gets its source,
+    in its own dtype, whatever the pairs' dtypes and shapes."""
+    i32 = torch.int32
+    src = [torch.arange(5, dtype=i32), torch.tensor(7, dtype=i32),
+           torch.tensor([True, False, True]), torch.arange(8).reshape(4, 2),
+           torch.tensor([3, 4], dtype=i32)]
+    dst = [torch.zeros_like(src[0]), torch.zeros_like(src[1]),
+           torch.zeros_like(src[2]), torch.zeros_like(src[3]),
+           torch.zeros(2, dtype=torch.int64)]
+    trs._copy_grouped(dst, src)
+    for d, s_, dtype in zip(dst, src, [i32, i32, torch.bool, torch.int64,
+                                       torch.int64]):
+        assert d.dtype == dtype and torch.equal(d, s_.to(dtype))
+
+
+def test_read_graph_cache_cannot_thrash(monkeypatch):
+    """The card's cache of read graphs, its policy alone (the capture,
+    the replay and the eager body stood in for): six shapes read in
+    turn with room for four keep four graphs and read the two others
+    eagerly; a graph gone more than ``GRAPH_IDLE_READS`` reads unused
+    gives its place to a new shape; each device has its own room; a
+    failed capture leaves no graph behind."""
+    from types import SimpleNamespace as NS
+
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: NS(cuda_stream=7))
+    monkeypatch.setattr(trs._ReadGraph, "capture",
+                        lambda g, st, rv, stream: setattr(g, "graph", 1))
+    monkeypatch.setattr(trs._ReadGraph, "run", lambda g, st, rv: "graph")
+    monkeypatch.setattr(trs, "_read_eager", lambda st, rv: "eager")
+    monkeypatch.setattr(trs, "GRAPH_IDLE_READS", 8)
+    assert trs.GRAPHS_PER_DEVICE == 4
+    cache = trs._ReadGraphs()
+
+    def doc(pb, dev=0):
+        return NS(wn=NS(device=torch.device("cuda", dev)), pb=pb, nw=64,
+                  md=32, d=3, actor_bits=2)
+
+    def reads(docs):
+        c = trs.read_graph_events
+        before = [c.value(event=e) for e in ("capture", "replay", "eager")]
+        out = [cache.read(st, None) for st in docs]
+        return out, [c.value(event=e) - b for e, b in
+                     zip(("capture", "replay", "eager"), before)]
+
+    shapes = [doc(2 ** i) for i in range(6)]
+    out, ev = reads(4 * shapes)
+    assert out == 4 * (4 * ["graph"] + 2 * ["eager"]) and ev == [4, 12, 8]
+    # the first graph was last read at read 19: read 28 is its 9th unused
+    out, ev = reads(6 * shapes[4:5])
+    assert out == 3 * ["eager"] + 3 * ["graph"] and ev == [1, 2, 3]
+    assert sorted(k[2] for k in cache._graphs) == [2, 4, 8, 16]
+    out, ev = reads([doc(2 ** i, dev=1) for i in range(4)])
+    assert out == 4 * ["graph"] and ev == [4, 0, 0]
+
+    def fail(g, st, rv, stream):
+        raise RuntimeError("capture")
+
+    monkeypatch.setattr(trs._ReadGraph, "capture", fail)
+    with pytest.raises(RuntimeError, match="capture"):
+        cache.read(doc(3, dev=2), None)
+    assert not [k for k in cache._graphs if k[0] == 2]
