@@ -56,12 +56,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from antidote_tpu_torch import resolve_device, stats
+from antidote_tpu_torch import resolve_device, stats, to_host, upload
 from antidote_tpu_torch.clocks import VC, dense
 from antidote_tpu_torch.config import Config as _Config
 from antidote_tpu_torch.interdc import gate_kernels as gk
 from antidote_tpu_torch.interdc.wire import InterDcTxn
-from antidote_tpu_torch.mat.device_plane import _host, _upload
 from antidote_tpu_torch.obs import prof
 from antidote_tpu_torch.obs.events import recorder
 from antidote_tpu_torch.obs.spans import tracer
@@ -503,9 +502,9 @@ class DependencyGate:
         pvc[cols[self.own_dc]] = self.now_us()
 
         with prof.annotate("gate_fixpoint"):
-            out = gate_fixpoint(*(_upload(a, self.device) for a in (
+            out = gate_fixpoint(*(upload(a, self.device) for a in (
                 ss, origin_col, pos_arr, ts, ping, pvc)))
-        applied, rounds, new_pvc = _host(out)   # one wait
+        applied, rounds, new_pvc = to_host(out)   # one wait
         _note_gate_dispatch(
             "fixpoint",
             h2d=(ss.nbytes + origin_col.nbytes + pos_arr.nbytes
@@ -831,7 +830,7 @@ class _DeviceRing:
         assert i == self.n_live
         n_live = np.asarray(i, np.int32)
         self.dev = gk.ring_gather(*self.dev[:5],
-                                  _upload(idx, self.gate.device),
+                                  upload(idx, self.gate.device),
                                   int(n_live), new_d=d_pad)
         _note_gate_dispatch("gather", h2d=idx.nbytes + n_live.nbytes)
         self.cap = new_cap
@@ -848,7 +847,7 @@ class _DeviceRing:
         slots[:k] = self.retire_pending
         ss, origin, pos, ts, ping, live = self.dev
         self.dev = (ss, origin, pos, ts, ping,
-                    gk.ring_retire(live, _upload(slots, self.gate.device)))
+                    gk.ring_retire(live, upload(slots, self.gate.device)))
         _note_gate_dispatch("retire", h2d=slots.nbytes)
         self.free.extend(self.retire_pending)
         self.retire_pending = []
@@ -875,7 +874,7 @@ class _DeviceRing:
                 (slot, txn, pos))
             self.n_live += 1
         dev = self.gate.device
-        self.dev = gk.ring_append(*self.dev, *(_upload(a, dev) for a in (
+        self.dev = gk.ring_append(*self.dev, *(upload(a, dev) for a in (
             slots, u_ss, u_origin, u_pos, u_ts, u_ping)))
         _note_gate_dispatch(
             "append",
@@ -899,12 +898,12 @@ class _DeviceRing:
         pvc[self.cols[gate.own_dc]] = gate.now_us()
         with prof.annotate("gate_ring_fixpoint"):
             applied_d, rounds_d, pvc_d, live_d, n_d = gk.ring_fixpoint(
-                *gk.ring_rows(self.dev), _upload(pvc, gate.device))
-        n_h, new_pvc = _host([n_d, pvc_d])
+                *gk.ring_rows(self.dev), upload(pvc, gate.device))
+        n_h, new_pvc = to_host([n_d, pvc_d])
         napp = int(n_h)
         d2h = n_h.nbytes  # the scalar count
         if napp:
-            applied, rounds = _host([applied_d, rounds_d])
+            applied, rounds = to_host([applied_d, rounds_d])
             d2h += applied.nbytes + rounds.nbytes
         else:
             applied = rounds = None

@@ -49,9 +49,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from antidote_tpu_torch import _cuda
+from antidote_tpu_torch import _cuda, upload
 from antidote_tpu_torch.clocks import dense
-from antidote_tpu_torch.mat.device_plane import _upload
 from antidote_tpu_torch.obs.prof import kernel_span
 
 #: FIFO-position infinity: larger than any real queue position, small
@@ -161,7 +160,7 @@ def ring_from_numpy(arrays, device):
     feeds both packages one state."""
     *six, pvc = arrays
     device = torch.device(device)
-    return ring_load(six, device), _upload(np.asarray(pvc), device)
+    return ring_load(six, device), upload(np.asarray(pvc), device)
 
 
 def _slots(slots: torch.Tensor, cap: int) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Seeded workloads of the dependency gate: BASELINE config 5's cascade
 (the port's copy of ``_gate_cascade`` in benches/config5_gst.py, the one
 workload of both of its gate probes), a fully serialised chain, and
-ring states for the fixpoint alone.  Tests and ``chip_smoke.py`` feed
-them to the gate."""
+ring states for the fixpoint alone.  The gate's tests, on the CPU and
+on the card, feed them to the gate."""
 
 from __future__ import annotations
 

@@ -66,7 +66,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from antidote_tpu_torch import resolve_device, stats
+from antidote_tpu_torch import resolve_device, stats, to_host, upload
 from antidote_tpu_torch.clocks import VC, ClockDomain
 from antidote_tpu_torch.mat import ingest, rga_store, sharded, store
 from antidote_tpu_torch.mat.materializer import Payload
@@ -103,35 +103,6 @@ def read_dispatch_count() -> int:
     return _read_dispatches
 
 
-def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array as a tensor on ``device``.  To the card through a
-    pinned copy and without blocking: an upload from pageable memory
-    waits for the card's queue."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
-
-
-def _host(tensors) -> list:
-    """numpy copies of ``tensors`` with ONE wait for the card: every
-    copy is queued into pinned memory without blocking, then the host
-    waits once for each device's stream."""
-    devs = {t.device for t in tensors if t.is_cuda}
-    if not devs:
-        return [t.numpy() for t in tensors]
-    outs = []
-    for t in tensors:
-        if t.is_cuda:
-            dst = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            dst.copy_(t, non_blocking=True)
-            t = dst
-        outs.append(t)
-    for dev in devs:
-        torch.cuda.current_stream(dev).synchronize()
-    return [t.numpy() for t in outs]
-
-
 @prof.kernel_span("mat.device_plane")
 def fused_read(splits: list) -> list:
     """Bring many planes' batched read folds to the host in ONE wait —
@@ -145,7 +116,7 @@ def fused_read(splits: list) -> list:
     post-processed {key: state} dicts in order."""
     count_read_dispatch()
     flat = [t for outs, _post in splits for t in outs]
-    host = _host(flat)
+    host = to_host(flat)
     results, at = [], 0
     for outs, post in splits:
         results.append(post(tuple(host[at:at + len(outs)])))
@@ -373,7 +344,7 @@ class _PlaneBase:
         if self._mesh is not None:
             with COLLECTIVE_LOCK:
                 st = sharded.gather_state(st)
-        return _host([getattr(st, n) for n in names])
+        return to_host([getattr(st, n) for n in names])
 
     def _packed_perm(self):
         """Ops-layout permutation for this plane's packed flushes, or
@@ -400,22 +371,22 @@ class _PlaneBase:
                                       perm)
             with self._collective_cm():
                 self.st, overflow = (
-                    ingest.packed_append(self.st, _upload(packed, dev))
+                    ingest.packed_append(self.st, upload(packed, dev))
                     if mesh is None else sharded.shards_append_packed(
-                        self.st, _upload(packed, dev)))
+                        self.st, upload(packed, dev)))
             ingest.note_dispatch(
                 n, packed.nbytes,
                 replicas=1 if mesh is None else mesh.shape["part"])
-            return _host([overflow[:n]])[0]
+            return to_host([overflow[:n]])[0]
         ki, lo, arrays = _pack_rows(rows, self.capacity, self.domain.d,
                                     self._row_cols)
-        cols = (_upload(a, dev) for a in (ki, lo, *arrays))
+        cols = (upload(a, dev) for a in (ki, lo, *arrays))
         with self._collective_cm():
             self.st, overflow = (
                 type(self)._append_fn(self.st, *cols) if mesh is None
                 else sharded.shards_append(type(self)._append_fn,
                                            self.st, *cols))
-        return _host([overflow[:n]])[0]
+        return to_host([overflow[:n]])[0]
 
     def _purge_idx(self, idx: int) -> None:
         raise NotImplementedError
@@ -427,7 +398,7 @@ class _PlaneBase:
 
     def _run_device_gc(self, gst_dense: np.ndarray) -> None:
         """The one `_device_gc` launch point: uploads the horizon."""
-        self._device_gc(_upload(gst_dense, self.device))
+        self._device_gc(upload(gst_dense, self.device))
 
     def _idx_tensor(self, idx: int) -> torch.Tensor:
         """int32[1] key index on the plane's device, filled there (a
@@ -533,7 +504,7 @@ class _PlaneBase:
         its fold already enqueued: the batched fold of one key."""
         outs, post = self._many_split(st, [None], [idx],
                                       self._idx_tensor(idx), rv)
-        return lambda: post(tuple(_host(outs)))[None]
+        return lambda: post(tuple(to_host(outs)))[None]
 
     def read_many_begin(self, keys: list, read_vc: Optional[VC]):
         """Batched :meth:`read_begin`: one device fold for every
@@ -552,7 +523,7 @@ class _PlaneBase:
         pad = np.zeros(_bucket(len(idxs)), dtype=np.int32)
         pad[:len(idxs)] = idxs
         return self._many_reader(self.st, owned, idxs,
-                                 _upload(pad, self.device), rv)
+                                 upload(pad, self.device), rv)
 
     def _many_split(self, st, owned: list, idxs, pad: torch.Tensor, rv):
         """Subclass hook: ``(tensors, post)`` — the batched read split
@@ -574,7 +545,7 @@ class _PlaneBase:
 
         def run():
             count_read_dispatch()
-            return post(tuple(_host(outs)))
+            return post(tuple(to_host(outs)))
 
         run.split = (outs, post)
         # the mesh IS the fusing discriminator for a sharded plane:
@@ -858,7 +829,7 @@ class _PlaneBase:
         pairs = self._ss_pairs(read_vc)
         if pairs is None:
             raise ReadBelowBase()  # unknown-DC flood: serve from log
-        return _upload(self._dense_vc(pairs), self.device)
+        return upload(self._dense_vc(pairs), self.device)
 
 
 class _Evicted:
@@ -1659,7 +1630,7 @@ class RgaPlane(_PlaneBase):
         st = self.st.get(idx)
         if st is not None:
             self.st[idx] = rga_store.rga_remap_actors(
-                st, _upload(perm, self.device))
+                st, upload(perm, self.device))
         remapped = []
         for r in self.rows:
             if r[0] == idx:
@@ -1805,7 +1776,7 @@ class RgaPlane(_PlaneBase):
         elems = list(self.rev_elems[idx])
 
         def run():
-            lam, act, elem, vis, n = (o.tolist() for o in _host(outs))
+            lam, act, elem, vis, n = (o.tolist() for o in to_host(outs))
             # present vertices sort to the front in document order
             return tuple(
                 ((int(lam[i]), actors[int(act[i]) - 1]),

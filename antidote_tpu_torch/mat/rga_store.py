@@ -74,7 +74,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from antidote_tpu_torch import resolve_device, stats
+from antidote_tpu_torch import resolve_device, stats, upload
 from antidote_tpu_torch.clocks import dense
 from antidote_tpu_torch.mat import ingest, rga_kernel
 from antidote_tpu_torch.mat.rga_kernel import (
@@ -304,13 +304,7 @@ def rga_append_coalesced(st: RgaStoreState, ins_cols, del_cols,
     for j, a in zip((_PK_LAM, _PK_ACT, _PK_DC, _PK_CT), del_cols[:4]):
         dl[:c, j] = np.asarray(a)
     dl[:c, _PK_NSCAL:] = np.asarray(del_cols[4])
-    dev = st.wn.device
-    x = torch.from_numpy(packed)
-    # to the card through a pinned copy: an upload from pageable memory
-    # would wait for the card's queued work
-    x = x.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" \
-        else x.to(dev)
-    st, ok = rga_append_packed(st, x, bp, b, c)
+    st, ok = rga_append_packed(st, upload(packed, st.wn.device), bp, b, c)
     ingest.note_dispatch(b + c, packed.nbytes)
     return st, ok
 

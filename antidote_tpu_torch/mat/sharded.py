@@ -57,7 +57,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from antidote_tpu_torch import runtime, stats
+from antidote_tpu_torch import runtime, stats, to_host
 from antidote_tpu_torch.clocks import dense
 from antidote_tpu_torch.mat import ingest, store
 from antidote_tpu_torch.obs import prof
@@ -551,7 +551,7 @@ class _ShardedBase:
         self._note_collective(t0)
         flat = [t for o in out for t in (o if isinstance(o, tuple)
                                          else (o,))]
-        host = iter(_dp._host(flat))
+        host = iter(to_host(flat))
         res = []
         for g, o in enumerate(out):
             n = len(np.atleast_1d(groups[g][0]))

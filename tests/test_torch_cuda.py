@@ -1,19 +1,25 @@
 """Card-only tests of the port: each CUDA kernel against its plain
-version on the card, the superstep, every shard type's store, the packed
-ingest plane, the RGA merge and store and the live device plane of every
-CRDT type on the card against the same calls on the CPU, the appends,
-purges, RGA reads and folds that must never wait for the card, the
-RGA read's CUDA graph against its eager body (folds, growth, restores,
-results that outlive later reads, two documents in turns, one capture a
-shape, a cache that shapes read in turn cannot thrash), the
-device plane's waits (one a flush chunk, one a read), the dependency
-gate's fixpoint kernel against its plain version and the gate on the
-card against the gate on the CPU (its ring updates without a wait, its
-waits per fixpoint the same at any number of rounds), the kernel spans'
+version on the card (an int64 shard whose timestamps pass 2**31
+among them), the superstep on each read path with its kernels' launches
+counted a step, and through the sharded store as eight shards on the
+card, every shard type's store, the packed ingest plane, the RGA merge
+and store and the live device plane of every CRDT type on the card
+against the same calls on the CPU, the appends, purges, RGA reads and
+folds that must never wait for the card, the RGA read's CUDA graph
+against its eager body (folds, growth, restores, results that outlive
+later reads, two documents in turns, one capture a shape, a cache that
+shapes read in turn cannot thrash), the device plane's waits (one a
+flush chunk, one a read), the dependency gate's fixpoint kernel against
+its plain version and the gate on the card against the gate on the CPU
+(its ring updates without a wait and equal to the CPU's, its waits per
+fixpoint the same at any number of rounds), the transaction path on the
+card against the CPU (also after a checkpointed restart and a live
+resize, every plane on the card, no error logged), the kernel spans'
 event pairs, a host span's clock against the device trace's, three
-DataCenters cut and healed on the card against the CPU, NodeServers and a federation on the card against the CPU, a node
-process on the card, and the wrappers' refusals.  Every test here
-skips where no CUDA device is present.
+DataCenters cut and healed on the card against the CPU, NodeServers
+and a federation on the card against the CPU, a node process and an
+operator console process beside the card, and the wrappers' refusals.
+Every test here skips where no CUDA device is present.
 
 The file imports nothing of JAX, so it also runs where JAX is not
 installed (``--noconftest`` skips tests/conftest.py, which imports it):
@@ -21,6 +27,9 @@ installed (``--noconftest`` skips tests/conftest.py, which imports it):
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
 
+import gc
+import logging
+import threading
 import warnings
 from collections import deque
 from contextlib import contextmanager
@@ -30,8 +39,7 @@ import numpy as np
 import pytest
 import torch
 
-from antidote_tpu_torch import entry
-from antidote_tpu_torch import stats
+from antidote_tpu_torch import entry, runtime, stats
 from antidote_tpu_torch.api import AntidoteGPU
 from antidote_tpu_torch.clocks import VC
 from antidote_tpu_torch.config import Config
@@ -39,8 +47,10 @@ from antidote_tpu_torch.crdt import get_type
 from antidote_tpu_torch.interdc import dep
 from antidote_tpu_torch.interdc import gate_kernels as ggk
 from antidote_tpu_torch.interdc import synth as gsynth
+from antidote_tpu_torch.interdc.wire import InterDcTxn
 from antidote_tpu_torch.mat import (device_plane, gpu_kernels, ingest,
-                                    rga_kernel, rga_store, store, synth)
+                                    rga_kernel, rga_store, sharded, store,
+                                    synth)
 from antidote_tpu_torch.txn.manager import read_many_fused
 
 DTYPES = [torch.int32, torch.int64]
@@ -73,10 +83,31 @@ def _args(st, vc):
     return (st.dots, st.ops, st.valid, st.base_vc, st.has_base, vc)
 
 
+#: an int64 shard's timestamps are µs-sized: the int32 shard's times 2**20
+TIME_SCALE = 1 << 20
+
+
+def _scaled(st, vc):
+    """The same shard as int64 with every timestamp times TIME_SCALE:
+    dot sequence numbers, commit times and clocks pass 2**31."""
+    ops = st.ops.to(torch.int64)
+    ops[:, 3] *= TIME_SCALE                     # dot_seq
+    ops[:, 5:] *= TIME_SCALE                    # op_ct, obs_vv, op_ss
+    return replace(st, ops=ops, dots=st.dots.to(torch.int64) * TIME_SCALE,
+                   base_vc=st.base_vc.to(torch.int64) * TIME_SCALE), \
+        vc.to(torch.int64) * TIME_SCALE
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_kernels_match_plain(cuda_device, dtype):
-    st, vc = _filled(cuda_device, dtype)
+@pytest.mark.parametrize("dtype,scaled", [
+    (torch.int32, False), (torch.int64, False), (torch.int64, True)],
+    ids=["int32", "int64", "int64-past-2**31"])
+def test_kernels_match_plain(cuda_device, dtype, scaled):
+    st, vc = _filled(cuda_device, torch.int32 if scaled else dtype)
+    if scaled:
+        want_present = gpu_kernels.orset_read_packed_plain(*_args(st, vc))
+        st, vc = _scaled(st, vc)
+        assert int(vc.max()) > 2**31 and int(st.ops[:, 3].max()) > 2**31
     gst = (st.base_vc + vc) // 2
     mask = gpu_kernels.read_mask(st.ops, st.valid, st.base_vc, st.has_base,
                                  vc, st.dots.shape[0]).reshape(-1)
@@ -99,24 +130,69 @@ def test_kernels_match_plain(cuda_device, dtype):
         assert torch.equal(got, want)
     folded = int(st.valid.sum() - pairs[3][1].sum())
     assert 0 < folded < int(st.valid.sum())
+    if scaled:                          # reads what the int32 shard reads
+        assert torch.equal(pairs[0][0], want_present)
+
+
+#: the kernels a read path launches in _superstep_run's 6 steps (2 GCs)
+PATH_LAUNCHES = {
+    "auto": {"orset_read_packed": 6, "orset_fold_presence": 0,
+             "orset_gc_packed": 2, "ring_append": 6},
+    "hybrid": {"orset_read_packed": 0, "orset_fold_presence": 6,
+               "orset_gc_packed": 2, "ring_append": 6},
+}
+
+
+def _superstep_run(device, fused):
+    """6 seeded supersteps over 1,003 keys, a GC every third: each
+    step's presence and overflow, then the state, on the CPU.  With
+    ``fused`` "mesh" the same batches go through a ShardedOrsetStore
+    over eight entries of ``device`` (the mesh as eight shards on one
+    card), its GC at the collective GST."""
+    rng = np.random.default_rng(3)
+    clock = np.zeros(3, dtype=np.int32)
+    if fused == "mesh":
+        sh = sharded.ShardedOrsetStore(runtime.Mesh([device] * 8, "part"),
+                                       1003, 8, 8, 8, dtype=torch.int32)
+    else:
+        fn, (st, _) = entry.entry(K=1003, B=64, device=device)
+    out = []
+    for i in range(6):
+        b = entry.make_batch(rng, 1003, 1024, 8, 3, clock, device=device)
+        if fused != "mesh":
+            st, present, ov = fn(st, b, gc=i % 3 == 2, fused=fused)
+            out += [present.cpu(), ov.cpu()]
+            continue
+        ov = sh.append(*(b[k] for k in entry.BATCH_FIELDS))
+        if i % 3 == 2:
+            out.append(sh.gc_collective().cpu())
+        frontier = entry.batch_frontier(b)
+        present = sh.read(frontier)
+        out += [present.cpu(), ov.cpu()]
+    if fused == "mesh":
+        assert {s.dots.device.type for s in sh.st.shards} == {device.type}
+        st = sharded.gather_state(sh.st)
+        assert torch.equal(present, gpu_kernels.orset_read_packed(
+            *_args(st, frontier)))
+    return out + [st.dots.cpu(), st.valid.cpu(), st.ops.cpu()]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fused", ["auto", "hybrid", False])
+@pytest.mark.parametrize("fused", ["auto", "hybrid", False, "mesh"])
 def test_superstep_on_card_matches_cpu(cuda_device, fused):
-    runs = []
-    for device in (cuda_device, torch.device("cpu")):
-        fn, (st, _) = entry.entry(K=1003, B=64, device=device)
-        rng = np.random.default_rng(3)
-        clock = np.zeros(3, dtype=np.int32)
-        out = []
-        for i in range(6):
-            b = entry.make_batch(rng, 1003, 1024, 8, 3, clock,
-                                 device=device)
-            st, present, ov = fn(st, b, gc=i % 3 == 2, fused=fused)
-            out += [present.cpu(), ov.cpu()]
-        runs.append(out + [st.dots.cpu(), st.valid.cpu(), st.ops.cpu()])
-    for a, b in zip(*runs):
+    """The superstep on each read path, and through the sharded store on
+    the card as eight shards, against the same batches on the CPU; the
+    kernel paths launch their kernels once a step (the GC kernel once a
+    GC) and no other."""
+    for k in gpu_kernels.KERNELS:
+        k.launches = 0
+    card = _superstep_run(cuda_device, fused)
+    if fused in PATH_LAUNCHES:
+        assert {k.__name__: k.launches for k in gpu_kernels.KERNELS} \
+            == PATH_LAUNCHES[fused]
+    cpu = _superstep_run(torch.device("cpu"), fused)
+    assert len(card) == len(cpu)
+    for a, b in zip(card, cpu):
         assert torch.equal(a, b)
 
 
@@ -609,14 +685,31 @@ def _plane_run(device, type_name):
             except device_plane.ReadBelowBase:
                 reads.append("below base")
         dp.gc(gen.snapshot())
-    tensors = []
-    for p in dp.planes.values():
-        for sub in (p._all_planes() if hasattr(p, "_subs") else [p]):
-            sts = sub.st.values() if isinstance(sub.st, dict) else [sub.st]
-            tensors += [getattr(st, f.name).cpu() for st in sts
+    tensors = _plane_tensors([dp])
+    assert {t.device.type for t in tensors} == {device.type}
+    return reads, evicted, [t.cpu() for t in tensors]
+
+
+def _plane_tensors(devs):
+    """Every state tensor of every plane of the DevicePlanes ``devs``
+    (map sub-planes and RGA documents included)."""
+    out = []
+    for dp in devs:
+        for p in dp.planes.values():
+            for sub in (p._all_planes() if isinstance(
+                    p, device_plane.MapPlane) else [p]):
+                sts = sub.st.values() if isinstance(sub.st, dict) \
+                    else [sub.st]
+                out += [getattr(st, f.name) for st in sts
                         for f in fields(st)
                         if isinstance(getattr(st, f.name), torch.Tensor)]
-    return reads, evicted, tensors
+    return out
+
+
+def _planes_on(partitions):
+    """The device types the partitions' planes' state tensors lie on."""
+    return {t.device.type for t in _plane_tensors(
+        [pm.device for pm in partitions])}
 
 
 @pytest.mark.cuda
@@ -825,35 +918,61 @@ def test_gate_on_card_matches_cpu(cuda_device, mode, steady):
     assert card[3] == card[2][0] > 0          # a launch a fixpoint
 
 
-@pytest.mark.cuda
-def test_gate_ring_never_waits_and_fixpoint_waits_alike(cuda_device):
-    """A ring's bulk load, appends, retire and gathers never wait; a
-    fixpoint waits as often at 128 rounds as at 8."""
+def _ring_updates(device):
+    """A bulk load, a growing gather, a retire, appends into freed slots
+    and a widening gather (new origins) of one gate's ring, each a
+    ``_DeviceRing.sync`` after the queues changed by hand, on the card
+    under the sync check "error".  Returns (GATE_* dispatches by kind,
+    the ring's rows on the CPU)."""
     origins = gsynth.origin_names(16)
     gate = dep.DependencyGate(None, "self", lambda: 10**12,
                               batch_threshold=1, adapt=False,
-                              device=cuda_device)
+                              ring_capacity=64, device=device)
     ring = gate._ring = dep._DeviceRing(gate)
     rows = gsynth.gate_cascade(16, 8)
+    reg = stats.registry
+    d0 = {k: reg.gate_dispatches.value(kind=k)
+          for k in dep.GATE_DISPATCH_KINDS}
 
-    def sync_ring(sel):
-        for r in rows:
-            if sel(r):
-                t = gsynth.make_txn(r, origins)
-                gate.queues.setdefault(t.dc_id, deque()).append(t)
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+    def sync_ring(txns):
+        for t in txns:
+            gate.queues.setdefault(t.dc_id, deque()).append(t)
+        if device.type != "cuda":
+            return ring.sync()
+        with _sync_check("error"):
             ring.sync()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
 
-    sync_ring(lambda r: r[1] < 4)                     # bulk load
-    sync_ring(lambda r: r[1] == 4)                    # grow: a gather
+    def phase(sel):
+        return [gsynth.make_txn(r, origins) for r in rows if sel(r)]
+
+    sync_ring(phase(lambda r: r[1] < 4))              # bulk load
+    sync_ring(phase(lambda r: r[1] == 4))             # grow: a gather
     for o in origins[:5]:
         gate.queues[o].popleft()
-    sync_ring(lambda r: False)                        # retire
-    sync_ring(lambda r: r[1] == 5 and r[0] < 3)       # append
-    assert ring.n_live == gate.pending()
+    sync_ring([])                                     # retire
+    sync_ring(phase(lambda r: r[1] == 5 and r[0] < 3))  # append
+    d_pad = ring.d_pad
+    sync_ring([InterDcTxn(                            # widen: a gather
+        dc_id=f"new{i:02d}", partition=0, prev_log_opid=0,
+        snapshot_vc=VC({f"new{i:02d}": 4999 + i}), timestamp=5000 + i,
+        records=["r"]) for i in range(40)])
+    assert ring.n_live == gate.pending() and ring.d_pad > d_pad
+    return ({k: reg.gate_dispatches.value(kind=k) - d0[k]
+             for k in dep.GATE_DISPATCH_KINDS},
+            [t.cpu() for t in ggk.ring_rows(ring.dev)])
+
+
+@pytest.mark.cuda
+def test_gate_ring_never_waits_and_fixpoint_waits_alike(cuda_device):
+    """A ring's bulk load, appends, retire and gathers never wait and
+    leave the ring the CPU's updates leave; a fixpoint waits as often at
+    128 rounds as at 8."""
+    card, cpu = (_ring_updates(d) for d in (cuda_device,
+                                             torch.device("cpu")))
+    assert card[0] == cpu[0] and min(
+        card[0]["append"] - 1, card[0]["retire"], card[0]["gather"] - 1) >= 1
+    assert all(map(torch.equal, card[1], cpu[1]))
+    origins = gsynth.origin_names(16)
     waits = []
     for rows in (gsynth.gate_cascade(16, 8), gsynth.serial_chain(16, 128)):
         applied = []
@@ -873,49 +992,107 @@ def test_gate_ring_never_waits_and_fixpoint_waits_alike(cuda_device):
     assert waits[0] == waits[1] <= 2, waits
 
 
-def _txn_tape(device, data_dir, n=240, K=48):
-    """A seeded single-thread tape through AntidoteGPU on ``device``:
-    static updates, interactive txns that read then update, static
-    reads, over counters, add-wins sets and MV registers.  Returns every
-    value read and each key's final value."""
+def _tape(db, objs, n):
+    """A seeded single-thread tape of ``n`` txns over ``objs``: static
+    updates, interactive txns that read then update, static reads.
+    Returns (every value read, the last commit clock, the objects
+    written)."""
+    rng = np.random.default_rng(11)
+    reads, clock, written = [], None, set()
+    for i in range(n):
+        picks = [objs[int(j)] for j in rng.choice(len(objs), 3,
+                                                  replace=False)]
+        ups = [(bo, "increment", int(rng.integers(1, 5)))
+               if bo[1] == "counter_pn" else
+               (bo, "add" if bo[1] == "set_aw" else "assign",
+                b"e%d" % int(rng.integers(6))) for bo in picks]
+        if i % 3 == 0:
+            clock = db.update_objects_static(clock, ups)
+        elif i % 3 == 1:
+            tx = db.start_transaction(clock)
+            reads.append(db.read_objects(picks, tx))
+            db.update_objects(ups, tx)
+            clock = db.commit_transaction(tx)
+        else:
+            reads.append(db.read_objects_static(clock, picks)[0])
+            continue
+        written.update(picks)
+    return reads, clock, written
+
+
+def _txn_tape(device, data_dir, then="read", K=48):
+    """:func:`_tape` through AntidoteGPU on ``device`` over counters,
+    add-wins sets and MV registers, then every key read.  Before that
+    read, with ``then`` "restart", a checkpoint is cut on every
+    partition and a new node opened over the closed one's data
+    directory; with "resize", a checkpoint is cut and the ring resized
+    live from 4 partitions to 8, and either must read what was read
+    before the cut.  Every partition's planes lie on ``device``.  The
+    closed node leaves no thread behind, and on the card no memory; on
+    the card the restart seeds keys there, and the restarted or resized
+    node holds every written counter and set.  Returns every value read
+    and each key's final value."""
+    want = torch.device("cuda" if device is None else device).type
+    cuda = want == "cuda"
+    mem0 = torch.cuda.memory_allocated() if cuda else 0
+    threads0 = set(threading.enumerate())
     db = AntidoteGPU(config=Config(n_partitions=4, sync_log=False),
                      data_dir=data_dir, device=device)
-    want = torch.device("cuda" if device is None else device).type
     assert {pm.device.device.type for pm in db.node.partitions} == {want}
     objs = [(f"{tn[0]}{k}", tn) for tn in ("counter_pn", "set_aw",
                                            "register_mv") for k in range(K)]
-    rng = np.random.default_rng(11)
-    reads, clock = [], None
     try:
-        for i in range(n):
-            picks = [objs[int(j)] for j in rng.choice(len(objs), 3,
-                                                      replace=False)]
-            ups = [(bo, "increment", int(rng.integers(1, 5)))
-                   if bo[1] == "counter_pn" else
-                   (bo, "add" if bo[1] == "set_aw" else "assign",
-                    b"e%d" % int(rng.integers(6))) for bo in picks]
-            if i % 3 == 0:
-                clock = db.update_objects_static(clock, ups)
-            elif i % 3 == 1:
-                tx = db.start_transaction(clock)
-                reads.append(db.read_objects(picks, tx))
-                db.update_objects(ups, tx)
-                clock = db.commit_transaction(tx)
-            else:
-                reads.append(db.read_objects_static(clock, picks)[0])
+        reads, clock, written = _tape(db, objs, 240)
+        if then != "read":
+            before = db.read_objects_static(clock, objs)[0]
+            assert all(pm.checkpoint_now() is not None
+                       for pm in db.node.partitions)
+        if then == "restart":
+            db.close()
+            db = None
+            gc.collect()
+            left = [t for t in threading.enumerate() if t not in threads0]
+            for t in left:
+                t.join(timeout=5)
+            assert not [t.name for t in left if t.is_alive()]
+            if cuda:
+                assert torch.cuda.memory_allocated() <= mem0 + (8 << 20)
+            seeded = stats.registry.ckpt_seed_device_keys.value()
+            db = AntidoteGPU(config=Config(n_partitions=4, sync_log=False),
+                             data_dir=data_dir, device=device)
+            if cuda:
+                assert stats.registry.ckpt_seed_device_keys.value() > seeded
+        elif then == "resize":
+            db.node.repartition_live(8)
+            assert len(db.node.partitions) == 8
+        if then != "read" and cuda:
+            assert all(
+                pm.device.owns(tn, key) and key not in pm.device.host_only
+                for key, tn in written if tn != "register_mv"
+                for pm in [db.node.partition_of(key)])
+        assert _planes_on(db.node.partitions) == {want}
         final = db.read_objects_static(clock, objs)[0]
+        if then != "read":
+            assert final == before
     finally:
-        db.close()
+        if db is not None:
+            db.close()
     return reads, final
 
 
 @pytest.mark.cuda
-def test_txn_tape_on_card_matches_cpu(cuda_device, tmp_path):
+@pytest.mark.parametrize("then", ["read", "restart", "resize"])
+def test_txn_tape_on_card_matches_cpu(cuda_device, tmp_path, caplog, then):
     """The single-DC transaction path with every partition's planes on
-    the card reads what it reads with them on the CPU."""
-    card = _txn_tape(None, str(tmp_path / "card"))
-    assert card == _txn_tape("cpu", str(tmp_path / "cpu"))
+    the card reads what it reads with them on the CPU, also after a
+    checkpointed restart and a live resize, and the port logs no
+    error."""
+    gc.collect()
+    card = _txn_tape(None, str(tmp_path / "card"), then)
+    assert card == _txn_tape("cpu", str(tmp_path / "cpu"), then)
     assert any(card[1])
+    assert not [r for r in caplog.records if r.levelno >= logging.ERROR
+                and r.name.startswith("antidote_tpu_torch")]
 
 
 @pytest.mark.cuda
@@ -1061,6 +1238,8 @@ def _heal_values(device, data_dir):
         for a in ("dc1", "dc2"):
             bus.set_link(a, "dc3", True)
         vals = [dc.read_objects_static(target, keys)[0] for dc in dcs]
+        assert _planes_on([pm for dc in dcs for pm in dc.node.partitions]) \
+            == {torch.device(device or "cuda").type}
         return vals, stats.registry.gate_dispatches.value(
             kind="fixpoint") - f0
     finally:
@@ -1069,16 +1248,19 @@ def _heal_values(device, data_dir):
 
 
 @pytest.mark.cuda
-def test_multidc_heal_on_card_matches_cpu(cuda_device, tmp_path):
-    """Three DataCenters on the card, dc3 cut and healed: its gates
-    catch up through the ring fixpoint on the card, and every DC reads
-    what the same tape gives three DataCenters on the CPU."""
+def test_multidc_heal_on_card_matches_cpu(cuda_device, tmp_path, caplog):
+    """Three DataCenters with their planes and gates on the card, dc3
+    cut and healed: its gates catch up through the ring fixpoint on the
+    card, every DC reads what the same tape gives three DataCenters on
+    the CPU, and the port logs no error."""
     l0 = ggk.ring_fixpoint.launches
     card, fix = _heal_values(None, str(tmp_path / "card"))
     assert ggk.ring_fixpoint.launches > l0 and fix > 0
     cpu, _ = _heal_values("cpu", str(tmp_path / "cpu"))
     assert card == cpu
     assert card[0] == card[1] == card[2]
+    assert not [r for r in caplog.records if r.levelno >= logging.ERROR
+                and r.name.startswith("antidote_tpu_torch")]
 
 
 def _cluster_values(device, root):
@@ -1136,18 +1318,7 @@ def test_cluster_members_on_card_match_cpu(cuda_device, tmp_path):
         for s in members:
             assert s.device.type == "cuda"
             assert s.fabric_kind() == "native"
-            for pm in s.node._local_partitions():
-                for p in pm.device.planes.values():
-                    subs = p._all_planes() if isinstance(
-                        p, device_plane.MapPlane) else [p]
-                    for sub in subs:
-                        sts = sub.st.values() if isinstance(sub.st, dict) \
-                            else [sub.st]
-                        for st in sts:
-                            for f in fields(st):
-                                v = getattr(st, f.name)
-                                if isinstance(v, torch.Tensor):
-                                    assert v.device.type == "cuda", f.name
+            assert _planes_on(s.node._local_partitions()) == {"cuda"}
         for dc in nids:
             for n in dc:
                 assert n.bus._hub is not None
@@ -1169,11 +1340,66 @@ def test_cluster_members_on_card_match_cpu(cuda_device, tmp_path):
     assert card[0] == card[1] == card[2]
 
 
+#: runs ``python -m antidote_tpu_torch.console ARGS`` and, at exit,
+#: writes to stderr the modules of jax or the JAX package it loaded and
+#: whether it created a CUDA context
+_CONSOLE_PROBE = (
+    "import atexit, json, runpy, sys\n"
+    "def _report():\n"
+    "    import torch\n"
+    "    bad = sorted(m for m in sys.modules\n"
+    "                 if m.split('.')[0] in ('jax', 'jaxlib', 'antidote_tpu'))\n"
+    "    sys.stderr.write('\\nPROBE ' + json.dumps(\n"
+    "        {'foreign': bad, 'cuda': torch.cuda.is_initialized()}) + '\\n')\n"
+    "atexit.register(_report)\n"
+    "sys.argv[0] = 'antidote_tpu_torch.console'\n"
+    "runpy.run_module('antidote_tpu_torch.console', run_name='__main__',\n"
+    "                 alter_sys=True)\n")
+
+
+def _console_at_dc(device, root):
+    """A DataCenter on ``device`` behind a PbServer: a write and its
+    read over PB, then the console's ``status`` as its own process.
+    Returns (the value read, the console's exit code, its status, its
+    probe, the device types of the DC's planes)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from antidote_tpu_torch.interdc import InProcBus
+    from antidote_tpu_torch.interdc.dc import DataCenter
+    from antidote_tpu_torch.pb import PbClient, PbServer
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    dc = DataCenter("dcA", InProcBus(), config=Config(n_partitions=2),
+                    data_dir=f"{root}/dcA", device=device)
+    srv = PbServer(dc, port=0).start()
+    try:
+        obj = ("k", "counter_pn", "b")
+        with PbClient(port=srv.port) as c:
+            ct = c.update_objects_static(None, [(obj, "increment", 6)])
+            vals, _ = c.read_objects_static(ct, [obj])
+        p = subprocess.run(
+            [sys.executable, "-c", _CONSOLE_PROBE, "--port", str(srv.port),
+             "status"], cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+            capture_output=True, text=True, timeout=120)
+        probe = [json.loads(ln[6:]) for ln in p.stderr.splitlines()
+                 if ln.startswith("PROBE ")]
+        status = json.loads(p.stdout) if p.returncode == 0 else p.stderr
+        return vals, p.returncode, status, probe, \
+            _planes_on(dc.node.partitions)
+    finally:
+        srv.stop()
+        dc.close()
+
+
 @pytest.mark.cuda
 def test_node_process_on_card(cuda_device, tmp_path):
     """``python -m antidote_tpu_torch.cluster`` with no ``--device``
     serves on the card, stops on SIGTERM, and imports neither jax nor
-    the JAX package."""
+    the JAX package; the operator console, its own process, reads a DC
+    on the card over PB and loads neither jax nor a CUDA context."""
     import os
     import signal
     import subprocess
@@ -1210,3 +1436,7 @@ def test_node_process_on_card(cuda_device, tmp_path):
             proc.wait()
     assert proc.returncode == 0
     assert out.strip().endswith("foreign []")
+    vals, rc, status, probe, planes = _console_at_dc(None, str(tmp_path))
+    assert vals == [6] and rc == 0 and status["dc_id"] == "dcA", status
+    assert probe == [{"foreign": [], "cuda": False}]
+    assert planes == {"cuda"}

@@ -4,7 +4,7 @@ tests run it on the CPU: interpret mode).  Exact equality throughout.
 
 On the CPU the gpu_kernels wrappers run their plain versions; the CUDA
 kernels themselves are held against those plain versions by the
-card-only tests (tests/test_torch_cuda.py) and by chip_smoke.py."""
+card-only tests (tests/test_torch_cuda.py)."""
 
 import numpy as np
 import pytest

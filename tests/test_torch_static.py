@@ -82,6 +82,35 @@ def _plant_device_sync(root, _monkeypatch):
             if "[lock-blocking]" in p and "device sync" in p]
 
 
+def _plant_root_sync(root, _monkeypatch):
+    """A wait in the package root, called under a lock from another
+    subpackage: the lint follows the call into the root."""
+    _write(root, f"{ts.PORT}/__init__.py", """
+        import torch
+
+
+        def to_host(tensors):
+            torch.cuda.synchronize()
+            return tensors
+        """)
+    _write(root, f"{ts.PORT}/interdc/gate.py", """
+        import threading
+
+        from antidote_tpu_torch import to_host
+
+
+        class Gate:
+            def __init__(self):
+                self._lock = threading.Lock()
+
+            def fixpoint(self, out):
+                with self._lock:
+                    return to_host(out)
+        """)
+    return [p for p in ts.tool("concurrency_lint").lint(str(root))
+            if "[lock-blocking]" in p]
+
+
 def _plant_kernel_span(root, _monkeypatch):
     _write(root, f"{ts.JAX}/mat/pallas_kernels.py", """
         @kernel_span("mat.pallas")
@@ -109,10 +138,10 @@ def _plant_jax_table(_root, monkeypatch):
     return ts.jax_paths(mod)
 
 
-@pytest.mark.parametrize("plant", [_plant_device_sync, _plant_kernel_span,
-                                   _plant_jax_table],
-                         ids=["device-sync", "kernel-span-parity",
-                              "jax-path-guard"])
+@pytest.mark.parametrize("plant", [_plant_device_sync, _plant_root_sync,
+                                   _plant_kernel_span, _plant_jax_table],
+                         ids=["device-sync", "device-sync-in-package-root",
+                              "kernel-span-parity", "jax-path-guard"])
 def test_port_rule_fires_on_a_planted_violation(at_port, tmp_path,
                                                 monkeypatch, plant):
     found = plant(tmp_path, monkeypatch)
