@@ -1,6 +1,6 @@
 """Build and bind the port's hand-written CUDA kernels (every
-``csrc/*.cu``: the OR-Set kernels, the store's append and the
-dependency gate's fixpoint).
+``csrc/*.cu``: the OR-Set kernels, the store's and the RGA store's
+appends and the dependency gate's fixpoint).
 
 The sources are compiled by one ``nvcc`` call for ``sm_90a`` into one
 shared library with a plain C interface, at first use, into
@@ -33,6 +33,8 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+#: a host array of device pointers
+_PP = ctypes.POINTER(ctypes.c_void_p)
 #: C entry points: name -> argtypes (every one returns a cudaError_t)
 _SIGNATURES = {
     "antidote_orset_read": (_I, _P, _P, _P, _P, _P, _P, _P,
@@ -41,6 +43,8 @@ _SIGNATURES = {
     "antidote_orset_gc": (_I, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
     "antidote_ring_append": (_P, _P, _P, _I64, _P, _I, _P, _I, _P, _P, _P,
                              _I64, _I64, _I, _I, _P),
+    "antidote_rga_append": (_P, _PP, _I, _P, _P, _I64, _I64, _I64, _I64,
+                            _I, _I64, _I64, _P, _P, _P, _P),
     "antidote_gate_fixpoint": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _P),

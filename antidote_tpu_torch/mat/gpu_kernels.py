@@ -1,6 +1,6 @@
 """The OR-Set materializer's CUDA kernels, their wrappers and their plain
 PyTorch versions (port of antidote_tpu/mat/pallas_kernels.py), and the
-wrapper of the store's append kernel.
+wrappers of the store's and the RGA store's append kernels.
 
 Each OR-Set wrapper takes the store's packed layout (mat/store.py
 ``OrsetShardState``): ``dots`` int[K, E, D], ``ops`` int[K*L, 6+2D] with
@@ -20,17 +20,26 @@ the kernels.
   replaces no Pallas kernel: the JAX package's append is XLA's scatter).
   Its plain version is ``store._scatter_rows_plain``, and
   ``store._scatter_rows`` picks between the two by the ring's device.
+- :func:`rga_append_rows`: the RGA store's append, one packed op block
+  written into the window and delete lanes (``csrc/rga_kernels.cu``;
+  replaces no Pallas kernel: the JAX package's append is XLA's
+  ``dynamic_update_slice``).  Its plain version is
+  ``rga_store.rga_append``, and ``rga_store.rga_append_packed`` picks
+  between the two by the state's device.
 
 An OR-Set wrapper given CPU tensors runs the kernel's plain version, and
 only then; given CUDA tensors it launches the kernel (``csrc/
-orset_kernels.cu``) or raises.  ``ring_append`` launches or raises: its
-plain version lives in mat/store.py, which imports this module.  Each
+orset_kernels.cu``) or raises.  ``ring_append`` and ``rga_append_rows``
+launch or raise: their plain versions live in mat/store.py and
+mat/rga_store.py, which import this module.  Each
 wrapper counts its launches in its ``launches`` attribute.  The plain
 versions (``*_plain``) are the CPU path, the reference the kernels are
 held against on the card, and nothing else.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -285,14 +294,87 @@ def ring_append(ops, valid, n_lanes: int, key_idx, lane_off, rows,
     return overflow
 
 
+#: the RGA append's packed block: 7 scalar columns, then the D snapshot
+#: columns (mat/rga_store.py ``_PK_*``)
+_RGA_NSCAL = 7
+
+
+def _rga_columns(kind, cols, rows, d, dev):
+    """Checks the RGA store's ``kind`` columns (``rows`` lanes, the last
+    one [rows, d]) for the append kernel."""
+    for i, t in enumerate(cols):
+        shape = (rows, d) if i == len(cols) - 1 else (rows,)
+        if t.dtype not in (torch.int32, torch.int64) or t.shape != shape:
+            raise TypeError(f"{kind} column {i} must be int32/int64 "
+                            f"{list(shape)}, got {t.dtype} "
+                            f"{tuple(t.shape)}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{kind} column {i} must be contiguous on "
+                             f"{dev}")
+
+
+def rga_append_rows(packed, window, deletes, wn, dn, bp: int, n_ins: int,
+                    n_del: int):
+    """(ok, wn, dn), fresh 0-d tensors: the RGA store's append of one
+    packed block (``csrc/rga_kernels.cu``) with the contract of
+    ``rga_store.rga_append``.  ``packed`` is int64 [bp+cp, 7+D], insert
+    rows first; ``window`` the 8 columns (wlam, wact, wrlam, wract,
+    welem, wdc, wct [NW], wss [NW, D]), ``deletes`` the 5 (dlam, dact,
+    ddc, dct [MD], dss [MD, D]), each int32 or int64; ``wn``/``dn`` the
+    int32 0-d counters.  Where the padded block fits, ok = (wn + bp <=
+    NW) & (dn + cp <= MD), its rows are written from row wn and dn in
+    place and the counters advance by ``n_ins``/``n_del``; else nothing
+    changes.  One launch a call; never waits for the card."""
+    if (packed.dtype != torch.int64 or packed.dim() != 2
+            or packed.shape[1] <= _RGA_NSCAL):
+        raise TypeError(f"packed must be int64 [B, 7+D], got "
+                        f"{packed.dtype} {tuple(packed.shape)}")
+    bp, n_ins, n_del = int(bp), int(n_ins), int(n_del)
+    d = packed.shape[1] - _RGA_NSCAL
+    cp = packed.shape[0] - bp
+    if len(window) != 8 or len(deletes) != 5:
+        raise ValueError(f"want 8 window and 5 delete columns, got "
+                         f"{len(window)} and {len(deletes)}")
+    nw, md = window[0].shape[0], deletes[0].shape[0]
+    if not (0 <= bp <= nw and 0 <= cp <= md):
+        raise ValueError(f"a block of {bp} insert and {cp} delete rows "
+                         f"does not fit {nw} window and {md} delete lanes")
+    dev = packed.device
+    _rga_columns("window", window, nw, d, dev)
+    _rga_columns("delete", deletes, md, d, dev)
+    for t in (wn, dn):
+        if t.dtype != torch.int32 or t.shape != () or t.device != dev:
+            raise TypeError(f"counters must be int32 0-d on {dev}, got "
+                            f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if not packed.is_contiguous():
+        raise ValueError("packed must be contiguous")
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {dev}")
+    cols = window + deletes
+    ptrs = (ctypes.c_void_p * len(cols))(*[t.data_ptr() for t in cols])
+    is64 = sum([1 << i for i, t in enumerate(cols)
+                if t.dtype == torch.int64])
+    ok = torch.empty((), dtype=torch.bool, device=dev)
+    wn_new, dn_new = torch.empty_like(wn), torch.empty_like(dn)
+    with torch.cuda.device(dev):
+        _cuda.call("antidote_rga_append", packed.data_ptr(), ptrs, is64,
+                   wn.data_ptr(), dn.data_ptr(), nw, md, bp, cp, d, n_ins,
+                   n_del, ok.data_ptr(), wn_new.data_ptr(),
+                   dn_new.data_ptr(),
+                   torch.cuda.current_stream(dev).cuda_stream)
+    rga_append_rows.launches += 1
+    return ok, wn_new, dn_new
+
+
 orset_read_packed.launches = 0
 orset_fold_presence.launches = 0
 orset_gc_packed.launches = 0
 ring_append.launches = 0
+rga_append_rows.launches = 0
 
 #: every kernel wrapper, for code that resets or reads the counters
 KERNELS = (orset_read_packed, orset_fold_presence, orset_gc_packed,
-           ring_append)
+           ring_append, rga_append_rows)
 
 
 @kernel_span("mat.pallas")

@@ -51,6 +51,16 @@ each call of :func:`rga_append_packed`, :func:`rga_read` and
 a host span under its name; a call from inside another wrapped call
 (``rga_append`` under ``rga_append_packed``) passes straight through.
 
+The append's path: :func:`rga_append_coalesced` packs the block into
+one int64 host array and uploads it once; :func:`rga_append_packed`
+then writes it into the window and delete lanes.  On the card that is
+one launch of the hand-written kernel ``gpu_kernels.rga_append_rows``
+(``csrc/rga_kernels.cu``); on the CPU it is :func:`rga_append`, the
+plain version: ~100 torch operations a block (:func:`_put_at` a
+column), which :func:`rga_append_padded` takes on both devices and
+the card tests hold the kernel to, bit for bit.  ``append_events``
+counts the appends by path (``kernel``, ``plain``).
+
 Where the JAX version jits :func:`rga_read` into one XLA program, the
 port issues its ~400 operations one by one on the CPU, and on the card
 replays them as one CUDA graph (:class:`_ReadGraph`): captured at a
@@ -76,7 +86,7 @@ import torch
 
 from antidote_tpu_torch import resolve_device, stats, upload
 from antidote_tpu_torch.clocks import dense
-from antidote_tpu_torch.mat import ingest, rga_kernel
+from antidote_tpu_torch.mat import gpu_kernels, ingest, rga_kernel
 from antidote_tpu_torch.mat.rga_kernel import (
     _I32MAX, _lexsort2, _shift_down, argsort, pack_uid, searchsorted,
     set_drop)
@@ -191,6 +201,15 @@ def _put_at(dst, src, start, ok):
     return dst
 
 
+#: the store's appends by path
+append_events = stats.Counter(
+    "antidote_rga_append_total",
+    "RGA store appends by path: kernel (rga_append_packed on the card, "
+    "one launch of gpu_kernels.rga_append_rows) or plain (rga_append's "
+    "torch operations: the CPU, and rga_append_padded on any device)",
+    labels=("path",))
+
+
 @kernel_span("mat.rga")
 def rga_append(st: RgaStoreState, ins_lamport, ins_actor, ref_lamport,
                ref_actor, elem, ins_dc, ins_ct, ins_ss,
@@ -208,6 +227,7 @@ def rga_append(st: RgaStoreState, ins_lamport, ins_actor, ref_lamport,
     tail is written into the invalid region beyond wn/dn — masked by
     every fold/read and overwritten by the next append — while the
     counters advance by the logical counts only."""
+    append_events.inc(path="plain")
     b = ins_lamport.shape[0]
     c = del_lamport.shape[0]
     nb = b if n_ins is None else n_ins
@@ -271,7 +291,17 @@ def rga_append_packed(st: RgaStoreState, packed, bp: int, n_ins, n_del):
     """:func:`rga_append` fed from ONE packed int64 tensor on the state's
     device: rows ``[:bp]`` are the (padded) insert lanes, rows ``[bp:]``
     the delete lanes, columns per ``_PK_*``.  In place; never waits for
-    the card."""
+    the card.  On the card one launch of
+    ``gpu_kernels.rga_append_rows``, on the CPU :func:`rga_append`: the
+    same state and ``ok``, bit for bit."""
+    if st.wn.device.type == "cuda":
+        ok, wn, dn = gpu_kernels.rga_append_rows(
+            packed, (st.wlam, st.wact, st.wrlam, st.wract, st.welem,
+                     st.wdc, st.wct, st.wss),
+            (st.dlam, st.dact, st.ddc, st.dct, st.dss), st.wn, st.dn,
+            bp, n_ins, n_del)
+        append_events.inc(path="kernel")
+        return replace(st, wn=wn, dn=dn), ok
     d = st.d
     ins = packed[:bp]
     dl = packed[bp:]

@@ -1,6 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain
 version on the card (an int64 shard whose timestamps pass 2**31
-among them), the superstep on each read path with its kernels' launches
+among them, and the RGA store's append at buckets of 64 to 4,096 rows
+with refused blocks and int64 values cast into int32 columns), the superstep on each read path with its kernels' launches
 counted a step, and through the sharded store as eight shards on the
 card, every shard type's store, the packed ingest plane, the RGA merge
 and store and the live device plane of every CRDT type on the card
@@ -137,9 +138,9 @@ def test_kernels_match_plain(cuda_device, dtype, scaled):
 #: the kernels a read path launches in _superstep_run's 6 steps (2 GCs)
 PATH_LAUNCHES = {
     "auto": {"orset_read_packed": 6, "orset_fold_presence": 0,
-             "orset_gc_packed": 2, "ring_append": 6},
+             "orset_gc_packed": 2, "ring_append": 6, "rga_append_rows": 0},
     "hybrid": {"orset_read_packed": 0, "orset_fold_presence": 6,
-               "orset_gc_packed": 2, "ring_append": 6},
+               "orset_gc_packed": 2, "ring_append": 6, "rga_append_rows": 0},
 }
 
 
@@ -472,6 +473,91 @@ def test_rga_append_read_fold_never_wait_for_the_card(cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     assert bool(ok) and int(n) == 200 and int(st.wn) == sum(
         len(ins[0]) for ins, _dl, _hi in blocks[:3]) - 200
+
+
+#: the RGA append kernel's cases: (bp, cp, D, wn, dn, packed values,
+#: int64 columns), over RGA_NW window and RGA_MD delete lanes
+RGA_NW, RGA_MD = 8192, 6144
+RGA_APPEND_CASES = {
+    "b64-d1": (64, 64, 1, 0, 0, "int32", False),
+    "b256-d3": (256, 128, 3, 100, 7, "int32", False),
+    "b1024-d3": (1024, 512, 3, 3001, 901, "int32", False),  # the cell's
+    "b4096-d1": (4096, 4096, 1, 4000, 1000, "int32", False),
+    "b4096-d3": (4096, 2048, 3, 1, 2, "int32", False),
+    "no-inserts": (0, 128, 3, 10, 10, "int32", False),
+    "no-deletes": (256, 0, 3, 10, 10, "int32", False),
+    "window-full": (1024, 64, 3, RGA_NW - 1000, 0, "int32", False),
+    "deletes-full": (64, 1024, 3, 0, RGA_MD - 1000, "int32", False),
+    "past-2**31": (512, 256, 3, 5, 5, "int64", False),
+    "int64-columns": (256, 128, 2, 5, 5, "int64", True),
+}
+#: the state's columns the append writes
+RGA_APPEND_COLUMNS = ("wlam", "wact", "wrlam", "wract", "welem", "wdc",
+                      "wct", "wss", "dlam", "dact", "ddc", "dct", "dss")
+
+
+def _rga_append_case(device, bp, cp, d, wn, dn, values, int64_cols,
+                     seed=5):
+    """(state, packed): a store whose 13 columns hold seeded values
+    (every one int64 with ``int64_cols``) and whose counters are ``wn``
+    and ``dn``, and a packed block of ``bp`` insert and ``cp`` delete
+    rows of seeded values, within int32 or past 2**31 both ways."""
+    rng = np.random.default_rng(seed)
+    st = rga_store.rga_store_init(64, RGA_NW, RGA_MD, n_dcs=d,
+                                  device=device)
+
+    def filled(t):
+        dtype = torch.int64 if int64_cols else t.dtype
+        v = rng.integers(-2**31, 2**31, size=tuple(t.shape))
+        return torch.from_numpy(v).to(device=device, dtype=dtype)
+
+    st = replace(st, **{f: filled(getattr(st, f))
+                        for f in RGA_APPEND_COLUMNS},
+                 wn=torch.tensor(wn, dtype=torch.int32, device=device),
+                 dn=torch.tensor(dn, dtype=torch.int32, device=device))
+    hi = 2**40 if values == "int64" else 2**31
+    packed = rng.integers(-hi, hi, size=(bp + cp, 7 + d))
+    return st, torch.from_numpy(packed).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RGA_APPEND_CASES))
+def test_rga_append_kernel_matches_plain(cuda_device, case):
+    """The RGA append kernel (``rga_append_packed`` on the card) against
+    the plain ``rga_append`` on the card, on clones of one state: every
+    field, the padded tail beyond the counters included, and ``ok``
+    equal bit for bit; a refused block changes nothing; int64 values
+    cast into int32 columns as ``Tensor.to`` casts them.  One launch and
+    one ``kernel`` append a call."""
+    bp, cp, d, wn, dn, values, int64_cols = RGA_APPEND_CASES[case]
+    st, packed = _rga_append_case(cuda_device, bp, cp, d, wn, dn, values,
+                                  int64_cols)
+    n_ins, n_del = bp * 3 // 4, cp // 3
+    ins, dl = packed[:bp], packed[bp:]
+    want, want_ok = rga_store.rga_append(
+        _rga_clone(st), *(ins[:, j] for j in range(7)), ins[:, 7:],
+        dl[:, 0], dl[:, 1], dl[:, 5], dl[:, 6], dl[:, 7:], n_ins=n_ins,
+        n_del=n_del)
+    launches = gpu_kernels.rga_append_rows.launches
+    kernel = rga_store.append_events.value(path="kernel")
+    got, ok = rga_store.rga_append_packed(_rga_clone(st), packed, bp,
+                                          n_ins, n_del)
+    assert gpu_kernels.rga_append_rows.launches == launches + 1
+    assert rga_store.append_events.value(path="kernel") == kernel + 1
+    refused = case.endswith("-full")
+    assert ok.shape == () and ok.dtype == torch.bool
+    assert bool(ok) == bool(want_ok) == (not refused)
+    for f in fields(st):
+        if f.name != "actor_bits":
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            assert a.dtype == b.dtype and torch.equal(a, b), f.name
+            if refused:
+                assert torch.equal(a, getattr(st, f.name)), f.name
+    if not refused:
+        assert int(got.wn) == wn + n_ins and int(got.dn) == dn + n_del
+        assert torch.equal(got.wlam[wn:wn + bp],
+                           ins[:, 0].to(got.wlam.dtype))
+        assert torch.equal(got.dss[dn:dn + cp], dl[:, 7:])
 
 
 def _rga_clone(st):

@@ -209,6 +209,73 @@ def test_ring_append_refuses(change, error, match):
     assert not bool(args["valid"].any())
 
 
+def _rga_append_args(**change):
+    """rga_append_rows's arguments for an RGA store of 64 window and 32
+    delete lanes, D = 2, and a packed block of 16 insert and 8 delete
+    rows on the CPU, with ``change`` applied."""
+    from antidote_tpu_torch.mat import rga_store
+
+    st = rga_store.rga_store_init(16, 64, 32, n_dcs=2, device="cpu")
+    args = dict(packed=torch.ones((24, 9), dtype=torch.int64),
+                window=(st.wlam, st.wact, st.wrlam, st.wract, st.welem,
+                        st.wdc, st.wct, st.wss),
+                deletes=(st.dlam, st.dact, st.ddc, st.dct, st.dss),
+                wn=st.wn, dn=st.dn, bp=16, n_ins=12, n_del=5)
+    return {**args, **{k: f(args) for k, f in change.items()}}
+
+
+def _swap(cols, i, t):
+    return cols[:i] + (t,) + cols[i + 1:]
+
+
+@pytest.mark.parametrize("change, error, match", [
+    (dict(packed=lambda a: a["packed"].to(torch.int32)), TypeError,
+     "packed"),
+    (dict(packed=lambda a: a["packed"][:, 0]), TypeError, "packed"),
+    (dict(packed=lambda a: a["packed"][:, :7]), TypeError, "packed"),
+    (dict(packed=lambda a: a["packed"][:, :8]), TypeError, r"\[64, 1\]"),
+    (dict(packed=lambda a: a["packed"].t().contiguous().t()), ValueError,
+     "packed must be contiguous"),
+    (dict(window=lambda a: a["window"][:7]), ValueError, "8 window"),
+    (dict(window=lambda a: _swap(a["window"], 2,
+                                 a["window"][2].float())),
+     TypeError, "window column 2"),
+    (dict(window=lambda a: _swap(a["window"], 4, a["window"][4][:63])),
+     TypeError, "window column 4"),
+    (dict(deletes=lambda a: _swap(a["deletes"], 4,
+                                  a["deletes"][4][:, :1])),
+     TypeError, "delete column 4"),
+    (dict(deletes=lambda a: _swap(a["deletes"], 1,
+                                  torch.zeros(64, dtype=torch.int32)[::2])),
+     ValueError, "delete column 1 must be contiguous"),
+    (dict(wn=lambda a: a["wn"].long()), TypeError, "counters"),
+    (dict(dn=lambda a: a["dn"].reshape(1)), TypeError, "counters"),
+    (dict(bp=lambda a: 65, packed=lambda a: torch.ones((70, 9),
+                                                       dtype=torch.int64)),
+     ValueError, "does not fit"),
+    (dict(bp=lambda a: 0, packed=lambda a: torch.ones((33, 9),
+                                                      dtype=torch.int64)),
+     ValueError, "does not fit"),
+    (dict(), ValueError, "no kernel"),
+], ids=["packed-dtype", "packed-1d", "packed-narrow", "packed-d",
+        "packed-strided", "window-count", "column-dtype", "column-length",
+        "snapshot-width", "column-strided", "counter-dtype",
+        "counter-shape", "window-room", "delete-room", "cpu"])
+def test_rga_append_rows_refuses(change, error, match):
+    """The RGA append kernel's wrapper refuses what the kernel does not
+    take before it needs the card, and on the CPU never falls back to
+    the plain version (a CPU state reaches that through
+    rga_store.rga_append_packed alone): nothing launches, nothing is
+    written."""
+    args = _rga_append_args(**change)
+    before = gpu_kernels.rga_append_rows.launches
+    with pytest.raises(error, match=match):
+        gpu_kernels.rga_append_rows(**args)
+    assert gpu_kernels.rga_append_rows.launches == before
+    assert not any(bool(t.any()) for t in args["window"] + args["deletes"])
+    assert int(args["wn"]) == int(args["dn"]) == 0
+
+
 # ---------------------------------------------------------------------------
 # the other CRDT types' folds
 

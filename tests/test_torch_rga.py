@@ -8,7 +8,7 @@ document built by JAX carried across with state_from_numpy, and the
 read's CPU path (its eager body, no CUDA graph).  Equality is exact:
 values and dtypes."""
 
-from dataclasses import fields
+from dataclasses import fields, replace
 
 import numpy as np
 import jax.numpy as jnp
@@ -19,6 +19,7 @@ import torch_parity as tp
 from antidote_tpu.mat import rga_kernel as jrk
 from antidote_tpu.mat import rga_store as jrs
 from antidote_tpu.mat.synth import rga_trace as jax_rga_trace
+from antidote_tpu_torch.mat import gpu_kernels
 from antidote_tpu_torch.mat import rga_kernel as trk
 from antidote_tpu_torch.mat import rga_store as trs
 from antidote_tpu_torch.mat import synth as tsynth
@@ -459,3 +460,65 @@ def test_read_graph_cache_cannot_thrash(monkeypatch):
     with pytest.raises(RuntimeError, match="capture"):
         cache.read(doc(3, dev=2), None)
     assert not [k for k in cache._graphs if k[0] == 2]
+
+
+# -- the append's paths -------------------------------------------------
+
+def _append_counts():
+    c = trs.append_events
+    return c.value(path="kernel"), c.value(path="plain")
+
+
+def _clone(st):
+    return replace(st, **{f.name: getattr(st, f.name).clone()
+                          for f in fields(st) if f.name != "actor_bits"})
+
+
+@pytest.mark.parametrize("bp,cp,n_ins,n_del", [
+    (64, 64, 40, 3), (128, 64, 128, 0), (0, 64, 0, 9), (64, 0, 17, 0)])
+def test_packed_append_on_the_cpu_is_the_plain_path(bp, cp, n_ins, n_del):
+    """On the CPU ``rga_append_packed`` is ``rga_append`` over the packed
+    block's columns, padding rows and unused delete columns included:
+    every field and ``ok`` equal, one ``plain`` append counted a call
+    and no ``kernel`` one."""
+    rng = np.random.default_rng(bp + cp)
+    st = trs.rga_store_init(32, 256, 128, n_dcs=3, device="cpu")
+    st = replace(st, wn=torch.tensor(9, dtype=torch.int32),
+                     dn=torch.tensor(4, dtype=torch.int32))
+    packed = torch.from_numpy(
+        rng.integers(-2**40, 2**40, size=(bp + cp, 10)))
+    ins, dl = packed[:bp], packed[bp:]
+    before = _append_counts()
+    want = trs.rga_append(
+        _clone(st), *(ins[:, j] for j in range(7)), ins[:, 7:],
+        dl[:, 0], dl[:, 1], dl[:, 5], dl[:, 6], dl[:, 7:], n_ins=n_ins,
+        n_del=n_del)
+    got = trs.rga_append_packed(_clone(st), packed, bp, n_ins, n_del)
+    kernel, plain = _append_counts()
+    assert (kernel, plain) == (before[0], before[1] + 2)
+    assert gpu_kernels._RGA_NSCAL == trs._PK_NSCAL   # the kernel's layout
+    assert bool(got[1]) and torch.equal(got[1], want[1])
+    assert int(got[0].wn) == 9 + n_ins and int(got[0].dn) == 4 + n_del
+    for f in fields(st):
+        if f.name != "actor_bits":
+            a, b = getattr(got[0], f.name), getattr(want[0], f.name)
+            assert a.dtype == b.dtype and torch.equal(a, b), f.name
+
+
+def test_append_kernel_share_reads_the_counter(monkeypatch):
+    """``rga.append_kernel_pct`` (portbench/metrics/): the ``kernel``
+    appends over all the counter's appends, nothing with no counter or
+    no append."""
+    from antidote_tpu_torch import stats
+    from portbench.lib import harness
+
+    read = harness.reader("rga.append_kernel_pct")
+    counter = stats.Counter("c", "c", labels=("path",))
+    monkeypatch.setattr(trs, "append_events", counter)
+    assert read({}) is None
+    counter.inc(64, path="kernel")
+    assert read({}) == 100.0
+    counter.inc(path="plain")
+    assert read({}) == 100.0 * 64 / 65
+    monkeypatch.delattr(trs, "append_events")
+    assert read({}) is None
