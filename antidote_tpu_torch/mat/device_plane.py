@@ -1522,6 +1522,20 @@ _BOTTOM = {
 }
 
 
+#: the RGA plane's host waits for the card, by site
+rga_plane_waits = stats.Counter(
+    "antidote_rga_plane_waits_total",
+    "RGA plane host waits for the card by site: append (a document "
+    "append's ok, and the refit's reads of its counters), fold (a GC's "
+    "read of a document's counters) and read (a read's copy home)",
+    labels=("site",))
+#: the RGA plane's document appends and the op rows they carry
+rga_plane_appends = stats.Counter(
+    "antidote_rga_plane_appends_total",
+    "RGA plane document appends (what=appends) and the op rows they "
+    "carry (what=rows)", labels=("what",))
+
+
 class RgaPlane(_PlaneBase):
     """Device plane for rga — one VC-aware incremental store per key
     (mat/rga_store.py: folded base + op window with full commit-VC
@@ -1543,8 +1557,14 @@ class RgaPlane(_PlaneBase):
     src/materializer_vnode.erl:56-110 — eviction is this plane's
     capacity escape hatch, like the slotted planes').
 
-    The append waits for the card once a document (its ``ok``), and a
-    GC once a document (its window counts), as the JAX plane does."""
+    The append waits for the card once a document (its ``ok``), a GC
+    once a document (its counters) and a read once a document (its copy
+    home); ``rga_plane_waits`` counts them by site and
+    ``rga_plane_appends`` the document appends and their rows.  While
+    the kernel profiler is timing, each flush chunk's appends
+    (``rga_plane.append``), each GC's folds (``rga_plane.fold``) and
+    each read's host decode (``rga_plane.decode``) are host spans
+    (obs/prof.py)."""
 
     type_name = "rga"
 
@@ -1687,6 +1707,47 @@ class RgaPlane(_PlaneBase):
             return
         self._commit_rows(key, idx, [row])
 
+    def _wait(self, site: str, tensors) -> list:
+        """numpy copies of ``tensors``: one host wait for the card,
+        counted under ``site``."""
+        rga_plane_waits.inc(site=site)
+        return to_host(tensors)
+
+    def _refit(self, st, n_ins: int, n_del: int):
+        """``st`` folded at the newest stable horizon, then grown until
+        the PADDED block of ``n_ins`` inserts and ``n_del`` deletes fits
+        after what its window and delete lanes hold (an append refuses
+        a pad that would overhang, see rga_append)."""
+        if self._last_stable is not None:
+            pairs = self._ss_pairs(self._last_stable)
+            if pairs is not None:
+                bn, wn = self._wait("append", [st.bn, st.wn])
+                st = rga_store.rga_fold_host(st, self._dense_vc(pairs),
+                                             (int(bn), int(wn)))
+                # the physical base advanced: reads below this horizon
+                # must take the log-replay path from now on
+                # (_read_vc_dense checks _base_vc)
+                self._base_vc = self._base_vc.join(self._last_stable)
+                self._has_base = True
+        wn, dn = self._wait("append", [st.wn, st.dn])
+        need_w = int(wn) + rga_store._append_bucket(n_ins)
+        need_d = int(dn) + rga_store._append_bucket(n_del)
+        nw = st.nw
+        while nw < need_w:
+            nw *= 2
+        md = st.md
+        while md < need_d:
+            md *= 2
+        return rga_store.rga_grow(st, nw=nw, md=md)
+
+    def _append(self, append, st, ins_cols, del_cols):
+        """(state, ok) of one document append, ``ok`` read home."""
+        st, ok = append(st, ins_cols, del_cols)
+        rga_plane_appends.inc(what="appends")
+        rga_plane_appends.inc(len(ins_cols[0]) + len(del_cols[0]),
+                              what="rows")
+        return st, bool(self._wait("append", [ok])[0])
+
     def _append_rows(self, rows: List[tuple]) -> np.ndarray:
         """Per-key grouped append into each document's window; a full
         window folds at the newest stable horizon and/or grows — this
@@ -1697,63 +1758,49 @@ class RgaPlane(_PlaneBase):
         for r in rows:
             by_idx.setdefault(r[0], []).append(r)
         d = self.domain.d
-        for idx, group in by_idx.items():
-            st = self.st.get(idx)
-            if st is None:
-                continue  # evicted while staged; log replay covers it
-            ins = [r for r in group if r[1] == 0]
-            dels = [r for r in group if r[1] == 1]
+        with prof.profiler.span("rga_plane.append"):
+            for idx, group in by_idx.items():
+                st = self.st.get(idx)
+                if st is None:
+                    continue  # evicted while staged; the log covers it
+                ins = [r for r in group if r[1] == 0]
+                dels = [r for r in group if r[1] == 1]
 
-            def col(rs, j, dt=np.int32):
-                return np.asarray([r[j] for r in rs], dtype=dt)
+                def col(rs, j, dt=np.int32):
+                    return np.asarray([r[j] for r in rs], dtype=dt)
 
-            def ss(rs):
-                m = np.zeros((len(rs), d), dtype=np.int64)
-                for i, r in enumerate(rs):
-                    for c, t in r[9]:
-                        m[i, c] = max(m[i, c], t)
-                return m
+                def ss(rs):
+                    m = np.zeros((len(rs), d), dtype=np.int64)
+                    for i, r in enumerate(rs):
+                        for c, t in r[9]:
+                            m[i, c] = max(m[i, c], t)
+                    return m
 
-            # bucketed append; the coalesced form uploads the whole
-            # block as ONE packed tensor (mat/ingest.py economy), the
-            # per-column form stays as the baseline knob
-            append = (rga_store.rga_append_coalesced
-                      if self._ingest.enabled
-                      else rga_store.rga_append_padded)
-            ins_cols = (col(ins, 2), col(ins, 3), col(ins, 4),
-                        col(ins, 5), col(ins, 6), col(ins, 7),
-                        col(ins, 8, np.int64), ss(ins))
-            del_cols = (col(dels, 2), col(dels, 3), col(dels, 7),
-                        col(dels, 8, np.int64), ss(dels))
-            st, ok = append(st, ins_cols, del_cols)
-            if not bool(ok):
-                # fold what is stable, then grow to fit the backlog
-                if self._last_stable is not None:
-                    pairs = self._ss_pairs(self._last_stable)
-                    if pairs is not None:
-                        st = rga_store.rga_fold_host(
-                            st, self._dense_vc(pairs))
-                        # the physical base advanced: reads below this
-                        # horizon must take the log-replay path from now
-                        # on (_read_vc_dense checks _base_vc)
-                        self._base_vc = self._base_vc.join(
-                            self._last_stable)
-                        self._has_base = True
-                # room for the PADDED block (the append refuses when
-                # the pad would overhang, see rga_append)
-                need_w = int(st.wn) + rga_store._append_bucket(len(ins))
-                need_d = int(st.dn) + rga_store._append_bucket(len(dels))
-                nw = st.nw
-                while nw < need_w:
-                    nw *= 2
-                md = st.md
-                while md < need_d:
-                    md *= 2
-                st = rga_store.rga_grow(st, nw=nw, md=md)
-                st, ok = append(st, ins_cols, del_cols)
-                if not bool(ok):
-                    raise RuntimeError("rga append must fit after grow")
-            self.st[idx] = st
+                # bucketed append; the coalesced form uploads the whole
+                # block as ONE packed tensor (mat/ingest.py economy), the
+                # per-column form stays as the baseline knob
+                append = (rga_store.rga_append_coalesced
+                          if self._ingest.enabled
+                          else rga_store.rga_append_padded)
+                ins_cols = (col(ins, 2), col(ins, 3), col(ins, 4),
+                            col(ins, 5), col(ins, 6), col(ins, 7),
+                            col(ins, 8, np.int64), ss(ins))
+                del_cols = (col(dels, 2), col(dels, 3), col(dels, 7),
+                            col(dels, 8, np.int64), ss(dels))
+                if rga_store._append_bucket(len(ins)) > st.nw \
+                        or rga_store._append_bucket(len(dels)) > st.md:
+                    # a padded block longer than the whole window or
+                    # delete lanes: no append can take it, so make room
+                    # first (the shapes are on the host: no wait)
+                    st = self._refit(st, len(ins), len(dels))
+                st, ok = self._append(append, st, ins_cols, del_cols)
+                if not ok:
+                    # fold what is stable, then grow to fit the backlog
+                    st = self._refit(st, len(ins), len(dels))
+                    st, ok = self._append(append, st, ins_cols, del_cols)
+                    if not ok:
+                        raise RuntimeError("rga append must fit after grow")
+                self.st[idx] = st
         return overflow
 
     def _run_device_gc(self, gst_dense: np.ndarray) -> None:
@@ -1761,10 +1808,13 @@ class RgaPlane(_PlaneBase):
         self._device_gc(gst_dense)
 
     def _device_gc(self, gst_dense):
-        for idx, st in list(self.st.items()):
-            if int(st.wn) == 0 and int(st.dn) == 0:
-                continue  # quiescent document: nothing to fold
-            self.st[idx] = rga_store.rga_fold_host(st, gst_dense)
+        with prof.profiler.span("rga_plane.fold"):
+            for idx, st in list(self.st.items()):
+                bn, wn, dn = self._wait("fold", [st.bn, st.wn, st.dn])
+                if wn == 0 and dn == 0:
+                    continue  # quiescent document: nothing to fold
+                self.st[idx] = rga_store.rga_fold_host(
+                    st, gst_dense, (int(bn), int(wn)))
 
     # -- read path ----------------------------------------------------------
 
@@ -1776,12 +1826,14 @@ class RgaPlane(_PlaneBase):
         elems = list(self.rev_elems[idx])
 
         def run():
-            lam, act, elem, vis, n = (o.tolist() for o in to_host(outs))
-            # present vertices sort to the front in document order
-            return tuple(
-                ((int(lam[i]), actors[int(act[i]) - 1]),
-                 elems[int(elem[i])], bool(vis[i]))
-                for i in range(int(n)))
+            host = self._wait("read", outs)
+            with prof.profiler.span("rga_plane.decode"):
+                lam, act, elem, vis, n = (o.tolist() for o in host)
+                # present vertices sort to the front in document order
+                return tuple(
+                    ((int(lam[i]), actors[int(act[i]) - 1]),
+                     elems[int(elem[i])], bool(vis[i]))
+                    for i in range(int(n)))
 
         return run
 

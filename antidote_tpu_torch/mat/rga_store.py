@@ -892,15 +892,18 @@ def rga_remap_actors(st: RgaStoreState, perm) -> RgaStoreState:
     return st
 
 
-def rga_fold_host(st: RgaStoreState, gst) -> RgaStoreState:
+def rga_fold_host(st: RgaStoreState, gst, counts=None) -> RgaStoreState:
     """Host wrapper around :func:`rga_fold`: grows the base first when
     the folded document might not fit (worst case bn + stable window).
     ``gst`` is the dense stable VC (int64[D]); a scalar is treated as a
-    single-column horizon for the simulation benches."""
+    single-column horizon for the simulation benches.  ``counts`` is
+    the state's ``(bn, wn)`` where the caller has read them to the host
+    already; else they are read here (the one wait for the card)."""
     gst = np.asarray(gst, dtype=np.int64).reshape(-1)
     if gst.shape[0] != st.d:
         gst = np.pad(gst, (0, st.d - gst.shape[0]))
-    need = int(st.bn) + int(st.wn)
+    bn, wn = (int(st.bn), int(st.wn)) if counts is None else counts
+    need = int(bn) + int(wn)
     if need > st.pb:
         new_pb = st.pb
         while new_pb < need:

@@ -10,8 +10,9 @@ folds that must never wait for the card, the RGA read's CUDA graph
 against its eager body (folds, growth, restores, results that outlive
 later reads, two documents in turns, one capture a shape, a cache that
 shapes read in turn cannot thrash), the device plane's waits (one a
-flush chunk, one a read), the dependency gate's fixpoint kernel against
-its plain version and the gate on the card against the gate on the CPU
+flush chunk, one a read), the RGA plane of a partition of documents
+on the card against the CPU, the dependency gate's fixpoint kernel
+against its plain version and the gate on the card against the gate on the CPU
 (its ring updates without a wait and equal to the CPU's, its waits per
 fixpoint the same at any number of rounds), the transaction path on the
 card against the CPU (also after a checkpointed restart and a live
@@ -39,6 +40,8 @@ from dataclasses import fields, replace
 import numpy as np
 import pytest
 import torch
+
+import torch_docs as td
 
 from antidote_tpu_torch import entry, runtime, stats
 from antidote_tpu_torch.api import AntidoteGPU
@@ -872,6 +875,46 @@ def test_plane_waits_once_a_flush_chunk_and_a_read(cuda_device):
     assert w[0] == 1 and device_plane.read_dispatch_count() == n0 + 1, w
     assert fused == [c() for c in caps]
     assert all(c.device.type == "cuda" for c in caps)
+
+
+def _rga_partition(device):
+    """torch_docs' partition of 8 documents in 4 tiers over 3 DCs (actors
+    out of string order) staged op by op into a DevicePlane on
+    ``device`` at each tick's GST, GCs through ``gc_ops``, one document
+    opened a tick at DC 0's snapshot of the tick before, every document
+    at the last; returns the reads, the plane's waits by site and its
+    documents' tensors on the CPU."""
+    dp = _plane(device, flush_ops=16, gc_ops=64)
+    history = td.docs_history(5)
+    docs = sorted({p.key for ps, _, _ in history for p in ps})
+    waits = device_plane.rga_plane_waits
+    w0 = [waits.value(site=s) for s in ("append", "fold", "read")]
+    reads = []
+    for t, (payloads, _snap, gst) in enumerate(history):
+        for p in payloads:
+            dp.stage(p.key, "rga", p, gst)
+        if t:
+            doc = docs[t % len(docs)]
+            reads.append(dp.read_many([doc], "rga", history[t - 1][1]))
+    reads.append(dp.read_many(docs, "rga", history[-1][1]))
+    plane = dp.planes["rga"]
+    sts = [plane.st[i] for i in sorted(plane.st)]
+    return reads, [waits.value(site=s) - w for s, w in zip(
+        ("append", "fold", "read"), w0)], [
+        getattr(st, f.name).cpu() for st in sts for f in fields(st)
+        if isinstance(getattr(st, f.name), torch.Tensor)]
+
+
+@pytest.mark.cuda
+def test_rga_partition_plane_on_card_matches_cpu(cuda_device):
+    """The RGA plane of a partition of documents on the card reads,
+    waits and holds what it does on the CPU, bit for bit."""
+    card, cpu = _rga_partition(cuda_device), _rga_partition(
+        torch.device("cpu"))
+    assert card[0] == cpu[0] and card[1] == cpu[1]
+    assert len(card[2]) == len(cpu[2])
+    for a, b in zip(card[2], cpu[2]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 #: (seed, cap, d, options) of the fixpoint's seeded ring states; from

@@ -6,6 +6,8 @@ state tensors (values and dtypes) and reads, raise ReadBelowBase alike,
 move the INGEST_* counters alike, and read what the port's own CRDTs
 (the host oracle) give for every key still on the device."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -13,13 +15,11 @@ import torch
 import torch_parity as tp
 from antidote_tpu import stats as jstats
 from antidote_tpu.mat import device_plane as jdpm
-from antidote_tpu.mat.ingest import IngestSettings as JIngest
 from antidote_tpu.obs.spans import tracer as jtracer
 from antidote_tpu_torch import stats as tstats
 from antidote_tpu_torch.clocks import VC
 from antidote_tpu_torch.crdt import get_type
 from antidote_tpu_torch.mat import device_plane as tdpm
-from antidote_tpu_torch.mat.ingest import IngestSettings as TIngest
 
 TYPES = ["counter_pn", "set_aw", "register_mv", "register_lww", "flag_ew",
          "set_rw", "flag_dw", "set_go", "map_go", "map_rr", "rga"]
@@ -80,49 +80,8 @@ def _counters(reg):
             + [reg.ingest_flushes.value(kind=k) for k in FLUSH_KINDS])
 
 
-class Pair:
-    """A JAX DevicePlane and the port's on the CPU, driven alike; each
-    records its evictions ``(key, type, exported state)``."""
-
-    def __init__(self, export=True, ingest=True, **kw):
-        kw = {**PLANE_KW, **kw}
-        self.j = jdpm.DevicePlane(
-            ingest_settings=JIngest(enabled=ingest, coalesce_us=0), **kw)
-        self.t = tdpm.DevicePlane(
-            ingest_settings=TIngest(enabled=ingest, coalesce_us=0),
-            device="cpu", **kw)
-        self.j_ev, self.t_ev = [], []
-        self.j.set_evict_handler(
-            lambda k, t, s=None: self.j_ev.append((k, t, s)), export)
-        self.t.set_evict_handler(
-            lambda k, t, s=None: self.t_ev.append((k, t, s)), export)
-        self.ops = []
-
-    def stage(self, p, stable):
-        acc = self.t.accepts(p.type_name, p.key)
-        assert acc == self.j.accepts(p.type_name, p.key)
-        if not acc:
-            return
-        self.ops.append(p)
-        tb = self.t.stage(p.key, p.type_name, p, stable)
-        jb = self.j.stage(p.key, p.type_name, tp.jax_payload(p),
-                          tp.jax_vc(stable))
-        assert tb == jb
-
-    def call(self, what, *args, vc=()):
-        """``what`` on both planes, with ``vc`` (if given) as its last
-        argument, converted for JAX: (raised ReadBelowBase, result) must
-        agree."""
-        out = []
-        for dp, mod, conv in ((self.j, jdpm, tp.jax_vc),
-                              (self.t, tdpm, lambda v: v)):
-            vcs = () if vc == () else (conv(vc),)
-            try:
-                out.append((False, getattr(dp, what)(*args, *vcs)))
-            except mod.ReadBelowBase:
-                out.append((True, None))
-        assert out[0] == out[1], (what, args, vc)
-        return out[1]
+#: a JAX DevicePlane and the port's on the CPU at PLANE_KW, driven alike
+Pair = functools.partial(tp.Pair, **PLANE_KW)
 
 
 def _planes(dp):

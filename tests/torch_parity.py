@@ -1,7 +1,8 @@
 """Shared inputs for the parity tests of antidote_tpu_torch against
 antidote_tpu (tests/test_torch_*.py): seeded synth batches of every shard
 type driven through the JAX store, the same state carried across to the
-port, and seeded committed-op streams for the device planes."""
+port, seeded committed-op streams for the device planes, and the two
+packages' device planes driven side by side (``Pair``)."""
 
 from dataclasses import fields
 
@@ -10,13 +11,18 @@ import jax.numpy as jnp
 import torch
 
 from antidote_tpu.clocks import VC as JVC
+from antidote_tpu.crdt import get_type as jget_type
+from antidote_tpu.mat import device_plane as jdpm
 from antidote_tpu.mat import store as jstore
+from antidote_tpu.mat.ingest import IngestSettings as JIngest
 from antidote_tpu.mat.materializer import Payload as JPayload
 from antidote_tpu.mat.synth import orset_batch
+from antidote_tpu_torch.mat import device_plane as tdpm
 from antidote_tpu_torch.mat import store as tstore
 from antidote_tpu_torch.mat import synth as tsynth
 from antidote_tpu_torch.mat.synth import StreamGen  # noqa: F401
 from antidote_tpu_torch.mat.convert import state_from_numpy
+from antidote_tpu_torch.mat.ingest import IngestSettings as TIngest
 
 L, E, D, N_DCS = 8, 8, 8, 3
 JDT = {torch.int32: jnp.int32, torch.int64: jnp.int64}
@@ -294,3 +300,60 @@ def jax_payload(p):
 
 def jax_vc(vc):
     return None if vc is None else JVC(dict(vc))
+
+
+class Pair:
+    """A JAX DevicePlane and the port's on the CPU, driven alike; each
+    records its evictions ``(key, type, exported state)``."""
+
+    def __init__(self, export=True, ingest=True, **kw):
+        self.j = jdpm.DevicePlane(
+            ingest_settings=JIngest(enabled=ingest, coalesce_us=0), **kw)
+        self.t = tdpm.DevicePlane(
+            ingest_settings=TIngest(enabled=ingest, coalesce_us=0),
+            device="cpu", **kw)
+        self.j_ev, self.t_ev = [], []
+        self.j.set_evict_handler(
+            lambda k, t, s=None: self.j_ev.append((k, t, s)), export)
+        self.t.set_evict_handler(
+            lambda k, t, s=None: self.t_ev.append((k, t, s)), export)
+        self.ops = []
+
+    def stage(self, p, stable):
+        acc = self.t.accepts(p.type_name, p.key)
+        assert acc == self.j.accepts(p.type_name, p.key)
+        if not acc:
+            return
+        self.ops.append(p)
+        tb = self.t.stage(p.key, p.type_name, p, stable)
+        jb = self.j.stage(p.key, p.type_name, jax_payload(p),
+                          jax_vc(stable))
+        assert tb == jb
+
+    def call(self, what, *args, vc=()):
+        """``what`` on both planes, with ``vc`` (if given) as its last
+        argument, converted for JAX: (raised ReadBelowBase, result) must
+        agree."""
+        out = []
+        for dp, mod, conv in ((self.j, jdpm, jax_vc),
+                              (self.t, tdpm, lambda v: v)):
+            vcs = () if vc == () else (conv(vc),)
+            try:
+                out.append((False, getattr(dp, what)(*args, *vcs)))
+            except mod.ReadBelowBase:
+                out.append((True, None))
+        assert out[0] == out[1], (what, args, vc)
+        return out[1]
+
+
+def jax_rga_read(payloads, doc, vc):
+    """Document ``doc`` at snapshot ``vc`` by the JAX package's host
+    CRDT: the effects of the port's ``payloads`` (in delivery order)
+    whose commit VC ``vc`` covers, as state tuples of (uid, elem,
+    visible), tombstones included."""
+    rga, st, jv = jget_type("rga"), (), jax_vc(vc)
+    for p in payloads:
+        jp = jax_payload(p)
+        if jp.key == doc and (jv is None or jp.commit_vc().le(jv)):
+            st = rga.update(jp.effect, st)
+    return st
