@@ -35,8 +35,9 @@ filter would wait for the card), and the returned dtypes are those JAX
 gives under x64 (argsort indices int64, searchsorted int32).  The
 merges carry ``obs/prof.py``'s ``@kernel_span("mat.rga")``, as the JAX
 version's do: timed in ``detail`` mode when called alone, passed
-straight through when called from a wrapped store function (the
-store's fold calls :func:`rga_merge_full`).
+straight through when called from a wrapped function.  The store's
+fold calls the unwrapped :func:`_merge_impl`, which the card captures
+into a CUDA graph, where no profiler span may open.
 """
 
 from __future__ import annotations

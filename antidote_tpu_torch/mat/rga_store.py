@@ -42,7 +42,8 @@ appends never wait for the card (``ok`` stays a 0-d bool tensor;
 neither do :func:`rga_read` and :func:`rga_fold`.
 :func:`rga_append_padded` uploads each column on its own and
 :func:`rga_fold_host` reads the counters to the host, as the JAX ones
-do.  :func:`rga_append_coalesced` counts its dispatch in
+do; it uploads its horizon through pinned memory.
+:func:`rga_append_coalesced` counts its dispatch in
 the INGEST_* metrics (``ingest.note_dispatch``).  The JAX functions'
 ``kernel_span`` profiling is ported: the device entry points carry
 ``obs/prof.py``'s ``@kernel_span("mat.rga")``, so in ``detail`` mode
@@ -61,25 +62,28 @@ column), which :func:`rga_append_padded` takes on both devices and
 the card tests hold the kernel to, bit for bit.  ``append_events``
 counts the appends by path (``kernel``, ``plain``).
 
-Where the JAX version jits :func:`rga_read` into one XLA program, the
-port issues its ~400 operations one by one on the CPU, and on the card
-replays them as one CUDA graph (:class:`_ReadGraph`): captured at a
-shape's first read, without waiting for the card, then replayed.  Each
-read copies the state and the snapshot into the graph's inputs and its
+Where the JAX version jits :func:`rga_read` and :func:`rga_fold` each
+into one XLA program, the port issues their operations (~400 a read,
+~200 a fold) one by one on the CPU, and on the card replays each as one
+CUDA graph (:class:`_Graph`): captured at a shape's first call, without
+waiting for the card, then replayed.  Each call copies the state and
+its clock (the snapshot, the horizon) into the graph's inputs and its
 results out to fresh tensors, so states of any address share a graph
-and a result outlives the next read.  A device keeps at most
-``GRAPHS_PER_DEVICE`` graphs and drops one for a new shape only once
-it has gone ``GRAPH_IDLE_READS`` reads unused; until then a new
-shape's read runs the eager body on the card, so shapes read in turn
-cannot make every read a capture.  ``read_graph_events`` counts the
-captures, replays and eager reads on the card.
+and a result outlives the next call: a folded state is the caller's
+own.  A device keeps at most ``GRAPHS_PER_DEVICE`` read graphs and
+``FOLD_GRAPHS_PER_DEVICE`` fold graphs, and drops one for a new shape
+only once it has gone ``GRAPH_IDLE_READS`` reads (``GRAPH_IDLE_FOLDS``
+folds) unused; until then a new shape runs the eager body on the card,
+so shapes called in turn cannot make every call a capture
+(:class:`_Graphs`).  ``read_graph_events`` and ``fold_graph_events``
+count the captures, replays and eager calls on the card.
 """
 
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
@@ -366,16 +370,16 @@ def rga_read(st: RgaStoreState, read_vc):
 
     On the card the read replays its shape's CUDA graph (the results
     are the caller's own tensors), or runs :func:`_read_eager` there
-    while the device's graphs are all in use (:class:`_ReadGraphs`);
-    on the CPU it runs :func:`_read_eager`."""
+    while the device's graphs are all in use (:class:`_Graphs`); on the
+    CPU it runs :func:`_read_eager`."""
     if st.wn.device.type == "cuda":
-        return _READ_GRAPHS.read(st, read_vc)
+        return _READ_GRAPHS.call(st, read_vc)
     return _read_eager(st, read_vc)
 
 
 def _read_eager(st: RgaStoreState, read_vc):
     """:func:`rga_read`'s body, one torch operation at a time: the CPU
-    path, and what :class:`_ReadGraph` captures."""
+    path, and what :class:`_Graph` captures."""
     nw, pb = st.nw, st.pb
     bits = st.actor_bits
     dev = st.wn.device
@@ -478,6 +482,9 @@ def _read_eager(st: RgaStoreState, read_vc):
     return lam, act, elem_out, vis, n
 
 
+#: the state's tensor fields, in declaration order
+_STATE_FIELDS = tuple(f.name for f in fields(RgaStoreState)
+                      if f.name != "actor_bits")
 #: the state fields :func:`_read_eager` reads (``bparent`` it does not)
 _READ_FIELDS = ("buid", "belem", "blive", "bsub_end", "bn", "bsort_uid",
                 "bsort_pos", "ckey", "cpos", "wlam", "wact", "wrlam",
@@ -505,6 +512,13 @@ GRAPHS_PER_DEVICE = 4
 #: follow one another, a device spends at most ``GRAPHS_PER_DEVICE``
 #: captures in this many reads
 GRAPH_IDLE_READS = 512
+#: the captured folds a device keeps at most: room for a partition
+#: whose documents fold in seven shapes (seven tiers of length) and
+#: remap their actors in one more while they are small
+FOLD_GRAPHS_PER_DEVICE = 8
+#: the folds on the card that a captured fold must go unused before a
+#: new shape may take its place (the reads' rule)
+GRAPH_IDLE_FOLDS = 512
 
 #: the reads on the card by event
 read_graph_events = stats.Counter(
@@ -512,112 +526,133 @@ read_graph_events = stats.Counter(
     "RGA store reads on the card by CUDA-graph event: capture (a "
     "shape's first read recorded, then replayed), replay, or eager (the "
     "device's graphs all in use)", labels=("event",))
+#: the folds on the card by event
+fold_graph_events = stats.Counter(
+    "antidote_rga_fold_graph_total",
+    "RGA store folds on the card by CUDA-graph event: capture (a "
+    "shape's first fold recorded, then replayed), replay, or eager (the "
+    "device's fold graphs all in use)", labels=("event",))
 
 
-class _ReadGraph:
-    """:func:`_read_eager` captured as one CUDA graph for one shape
-    (PB, NW, MD, D, actor bits) and one stream.
+class _Graph:
+    """An eager body (:func:`_read_eager`, :func:`_fold_eager`) captured
+    as one CUDA graph for one shape (PB, NW, MD, D, actor bits) and one
+    stream.
 
-    The graph reads static input tensors and writes static outputs.
-    :meth:`run` copies the caller's state and snapshot into the inputs,
-    replays, and copies the outputs into fresh tensors, all on the
-    stream and under ``lock``, so readers of one shape share the graph
-    in stream order and no result is overwritten by a later replay.
-    :meth:`capture` runs under ``lock`` too, and waits for the card
-    nowhere: a warm-up read and the capture run on a side stream that
-    waits on the caller's."""
+    The body takes a state and an int64[D] clock (the read's snapshot,
+    the fold's horizon) and returns a tuple of tensors.  The graph reads
+    static inputs, the state's ``fields`` and the clock, and writes
+    static outputs.  :meth:`run` copies the caller's state and clock
+    into the inputs, replays, and copies the outputs into fresh tensors,
+    all on the stream and under ``lock``, so callers of one shape share
+    the graph in stream order and no result is overwritten by a later
+    replay.  :meth:`capture` runs under ``lock`` too, and waits for the
+    card nowhere: a warm-up call and the capture run on a side stream
+    that waits on the caller's."""
 
-    def __init__(self, used: int):
+    def __init__(self, body, fields_read, used: int):
+        self.body = body
+        self.fields = fields_read
         self.lock = threading.Lock()
-        #: the cache's count of reads at this graph's last read
+        #: the cache's count of calls at this graph's last call
         self.used = used
         self.graph = None
 
-    def capture(self, st: RgaStoreState, read_vc, stream) -> None:
+    def capture(self, st: RgaStoreState, vc, stream) -> None:
         dev = st.wn.device
-        self.inputs = [torch.empty_like(getattr(st, f)) for f in _READ_FIELDS]
-        self.read_vc = torch.empty((st.d,), dtype=torch.int64, device=dev)
-        # bparent is never read: a zero-row stand-in, not a stale tensor
-        self.state = replace(st, bparent=st.bparent.new_empty((0,)),
-                             **dict(zip(_READ_FIELDS, self.inputs)))
-        self._stage(st, read_vc)
+        self.inputs = [torch.empty_like(getattr(st, f)) for f in self.fields]
+        self.vc = torch.empty((st.d,), dtype=torch.int64, device=dev)
+        # a field the body never reads: a zero-row stand-in, not a
+        # stale tensor
+        unread = {f: getattr(st, f).new_empty((0,))
+                  for f in _STATE_FIELDS if f not in self.fields}
+        self.state = replace(st, **unread,
+                             **dict(zip(self.fields, self.inputs)))
+        self._stage(st, vc)
         side = torch.cuda.Stream(dev)
         side.wait_stream(stream)
         with torch.cuda.device(dev), torch.cuda.stream(side):
             # the warm-up does lazy set-up (kernel loads, sort scratch)
             # outside the capture
-            _read_eager(self.state, self.read_vc)
+            self.body(self.state, self.vc)
             graph = torch.cuda.CUDAGraph()
             graph.capture_begin(capture_error_mode="thread_local")
             try:
-                self.outputs = _read_eager(self.state, self.read_vc)
+                self.outputs = self.body(self.state, self.vc)
             finally:
                 graph.capture_end()
         # the next staging must not overwrite inputs the warm-up reads
         stream.wait_stream(side)
         self.graph = graph
 
-    def _stage(self, st: RgaStoreState, read_vc) -> None:
-        _copy_grouped(self.inputs + [self.read_vc],
-                      [getattr(st, f) for f in _READ_FIELDS] + [read_vc])
+    def _stage(self, st: RgaStoreState, vc) -> None:
+        _copy_grouped(self.inputs + [self.vc],
+                      [getattr(st, f) for f in self.fields] + [vc])
 
-    def run(self, st: RgaStoreState, read_vc):
+    def run(self, st: RgaStoreState, vc):
         with self.lock:
             if self.graph is None:
-                raise RuntimeError("the RGA read's CUDA graph of this "
+                raise RuntimeError("the RGA store's CUDA graph of this "
                                    "shape failed to capture")
-            self._stage(st, read_vc)
+            self._stage(st, vc)
             self.graph.replay()
             out = [torch.empty_like(o) for o in self.outputs]
             _copy_grouped(out, self.outputs)
         return tuple(out)
 
 
-class _ReadGraphs:
-    """The process's captured reads by (device, stream, shape), at most
-    ``GRAPHS_PER_DEVICE`` a device.
+class _Graphs:
+    """The process's captured calls of one eager ``body`` by (device,
+    stream, shape), at most ``cap`` a device, each call on the card
+    counted in ``events`` (``capture``, ``replay``, ``eager``).
 
-    A shape's first read captures where its device has room.  A full
+    A shape's first call captures where its device has room.  A full
     device drops its least recently used graph for a new shape only
-    once that graph has gone ``GRAPH_IDLE_READS`` reads unused; until
-    then the new shape reads eagerly.  So shapes read in turn keep the
-    graphs they hold and the others read eagerly, and a document grown
-    out of a shape leaves its graph to the next.  A capture runs outside
-    the cache's lock, under its graph's own, so only readers of that
-    shape wait for it.  A dropped graph may still be running: CUDA frees
-    an executable graph in flight when it completes; the memory pool it
-    captured into serves other allocations once ``empty_cache`` or an
-    out-of-memory retry releases it."""
+    once that graph has gone ``idle`` calls unused; until then the new
+    shape runs ``body`` eagerly on the card.  So shapes called in turn
+    keep the graphs they hold and the others run eagerly, and a document
+    grown out of a shape leaves its graph to the next.  A capture runs
+    outside the cache's lock, under its graph's own, so only callers of
+    that shape wait for it.  A dropped graph may still be running: CUDA
+    frees an executable graph in flight when it completes; the memory
+    pool it captured into serves other allocations once ``empty_cache``
+    or an out-of-memory retry releases it."""
 
-    def __init__(self):
+    def __init__(self, body, fields_read, cap: int, idle: int, events):
+        self.body = body
+        self.fields = fields_read
+        self.cap = cap
+        self.idle = idle
+        self.events = events
         self._lock = threading.Lock()
-        self._graphs: "OrderedDict[tuple, _ReadGraph]" = OrderedDict()
-        self._reads = 0
+        self._graphs: "OrderedDict[tuple, _Graph]" = OrderedDict()
+        self._calls = 0
 
-    def read(self, st: RgaStoreState, read_vc):
+    def call(self, st: RgaStoreState, vc):
         dev = st.wn.device
         stream = torch.cuda.current_stream(dev)
         key = (dev.index, stream.cuda_stream, st.pb, st.nw, st.md, st.d,
                st.actor_bits)
         with self._lock:
-            self._reads += 1
+            self._calls += 1
             g = self._graphs.get(key)
             if g is not None:
                 event = "replay"
-                g.used = self._reads
+                g.used = self._calls
                 self._graphs.move_to_end(key)
             elif self._make_room(dev.index):
                 event = "capture"
-                g = self._graphs[key] = _ReadGraph(self._reads)
+                g = self._graphs[key] = _Graph(self.body, self.fields,
+                                               self._calls)
                 g.lock.acquire()
             else:
                 event = "eager"
-        read_graph_events.inc(event=event)
+        self.events.inc(event=event)
         if g is None:
-            return _read_eager(st, read_vc)
+            return self.body(st, vc)
         if event == "capture":
             try:
-                g.capture(st, read_vc, stream)
+                g.capture(st, vc, stream)
             except BaseException:
                 with self._lock:
                     if self._graphs.get(key) is g:
@@ -625,15 +660,15 @@ class _ReadGraphs:
                 raise
             finally:
                 g.lock.release()
-        return g.run(st, read_vc)
+        return g.run(st, vc)
 
     def _make_room(self, index) -> bool:
         """Whether device ``index`` may take one more graph: dropping its
         least recently used graphs over the cap if each has gone
-        ``GRAPH_IDLE_READS`` reads unused, else none."""
+        ``idle`` calls unused, else none."""
         mine = [k for k in self._graphs if k[0] == index]
-        over = mine[:max(len(mine) - GRAPHS_PER_DEVICE + 1, 0)]
-        if any(self._reads - self._graphs[k].used <= GRAPH_IDLE_READS
+        over = mine[:max(len(mine) - self.cap + 1, 0)]
+        if any(self._calls - self._graphs[k].used <= self.idle
                for k in over):
             return False
         for k in over:
@@ -641,7 +676,13 @@ class _ReadGraphs:
         return True
 
 
-_READ_GRAPHS = _ReadGraphs()
+def _read_graphs() -> _Graphs:
+    """An empty cache of :func:`_read_eager`'s graphs."""
+    return _Graphs(_read_eager, _READ_FIELDS, GRAPHS_PER_DEVICE,
+                   GRAPH_IDLE_READS, read_graph_events)
+
+
+_READ_GRAPHS = _read_graphs()
 
 
 @kernel_span("mat.rga")
@@ -718,12 +759,30 @@ def _compact(order, n_new, size):
 
 @kernel_span("mat.rga")
 def rga_fold(st: RgaStoreState, gst):
-    """Fold window ops whose commit VC <= the dense GST (int64[D]) into
-    the base: one full merge over base + stable window (tombstoned
-    vertices keep their rows as anchors), then compact the window to its
-    unstable suffix.  Returns (state, n_new): the base's new row count
-    as a 0-d tensor.  Requires the folded base to fit PB rows (the host
-    wrapper grows first; see rga_fold_host)."""
+    """Fold window ops whose commit VC <= the dense GST (int64[D], on
+    the state's device) into the base: one full merge over base + stable
+    window (tombstoned vertices keep their rows as anchors), then compact
+    the window to its unstable suffix.  Returns (state, n_new): the
+    base's new row count as a 0-d tensor.  Requires the folded base to
+    fit PB rows (the host wrapper grows first; see rga_fold_host).
+
+    On the card the fold replays its shape's CUDA graph (the folded
+    state is the caller's own tensors), or runs :func:`_fold_eager`
+    there while the device's fold graphs are all in use
+    (:class:`_Graphs`); on the CPU it runs :func:`_fold_eager`."""
+    if st.wn.device.type == "cuda":
+        out = _FOLD_GRAPHS.call(st, gst)
+    else:
+        out = _fold_eager(st, gst)
+    st = replace(st, **dict(zip(_STATE_FIELDS, out)))
+    return st, st.bn
+
+
+def _fold_eager(st: RgaStoreState, gst):
+    """:func:`rga_fold`'s body, one torch operation at a time: the CPU
+    path, and what :class:`_Graph` captures.  Returns the folded state's
+    tensors in ``_STATE_FIELDS`` order.  It calls the merge's unwrapped
+    body, so no profiler span opens inside a capture."""
     nw, pb, md = st.nw, st.pb, st.md
     bits = st.actor_bits
     mask32 = (1 << bits) - 1
@@ -758,7 +817,7 @@ def rga_fold(st: RgaStoreState, gst):
     prev_live = torch.cat(
         [st.blive, torch.ones((nw,), dtype=torch.bool, device=dev)])
 
-    r = rga_kernel.rga_merge_full(
+    r = rga_kernel._merge_impl(
         ins_lam, ins_act, ref_lam, ref_act, elem, valid,
         st.dlam, st.dact, stable_d, actor_bits=bits)
 
@@ -794,8 +853,7 @@ def rga_fold(st: RgaStoreState, gst):
     dn_new = torch.sum(keep_d, dtype=i32)
     cd = _compact(dorder, dn_new, md)
 
-    return replace(
-        st,
+    folded = dict(
         buid=buid, bparent=bparent, belem=belem, blive=blive,
         bsub_end=bsub_end, bn=n_new,
         bsort_uid=buid[sort_perm], bsort_pos=bpos[sort_perm],
@@ -807,7 +865,24 @@ def rga_fold(st: RgaStoreState, gst):
         dlam=cd(st.dlam), dact=cd(st.dact),
         ddc=cd(st.ddc), dct=cd(st.dct), dss=cd(st.dss),
         dn=dn_new,
-    ), n_new
+    )
+    return tuple(folded[f] for f in _STATE_FIELDS)
+
+
+#: the state fields :func:`_fold_eager` reads (the base's sorted
+#: position, child index and subtree ends it rebuilds unread)
+_FOLD_FIELDS = ("buid", "bparent", "belem", "blive", "bn", "bsort_uid",
+                "wlam", "wact", "wrlam", "wract", "welem", "wdc", "wct",
+                "wss", "wn", "dlam", "dact", "ddc", "dct", "dss", "dn")
+
+
+def _fold_graphs() -> _Graphs:
+    """An empty cache of :func:`_fold_eager`'s graphs."""
+    return _Graphs(_fold_eager, _FOLD_FIELDS, FOLD_GRAPHS_PER_DEVICE,
+                   GRAPH_IDLE_FOLDS, fold_graph_events)
+
+
+_FOLD_GRAPHS = _fold_graphs()
 
 
 def _pad(a, rows, fill=0, cols=None):
@@ -909,5 +984,5 @@ def rga_fold_host(st: RgaStoreState, gst, counts=None) -> RgaStoreState:
         while new_pb < need:
             new_pb *= 2
         st = rga_grow(st, pb=new_pb)
-    st, _bn = rga_fold(st, torch.from_numpy(gst).to(st.bn.device))
+    st, _bn = rga_fold(st, upload(gst, st.bn.device))
     return st

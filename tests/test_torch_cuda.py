@@ -568,13 +568,15 @@ def _rga_clone(st):
                           for f in fields(st) if f.name != "actor_bits"})
 
 
-def _rga_doc(device, seed, n_blocks, pb=1024, nw=512, md=256):
+def _rga_doc(device, seed, n_blocks, pb=1024, nw=512, md=256, d=1):
     """A document of ``_rga_blocks(seed=seed)``'s first blocks, a fold
-    every 2 blocks as ``_rga_run`` (a base that never grows); returns
-    (state, the last stamp)."""
+    every 2 blocks as ``_rga_run`` (a base that never grows), over ``d``
+    DCs (the ops all from DC 0); returns (state, the last stamp)."""
     _tr, blocks = _rga_blocks(seed=seed)
-    st = rga_store.rga_store_init(pb, nw, md, device=device)
+    st = rga_store.rga_store_init(pb, nw, md, n_dcs=d, device=device)
     for i, (ins, dl, hi) in enumerate(blocks[:n_blocks]):
+        widen = lambda ss: np.pad(ss, ((0, 0), (0, d - 1)))
+        ins, dl = ins[:7] + (widen(ins[7]),), dl[:4] + (widen(dl[4]),)
         st, _ok = rga_store.rga_append_coalesced(st, ins, dl)
         if i % 2 == 1:
             st = rga_store.rga_fold_host(st, hi - 96)
@@ -601,7 +603,7 @@ def _rga_graph_events():
 def rga_graphs(monkeypatch):
     """A fresh cache of the read's CUDA graphs, so the first read of a
     shape here captures."""
-    graphs = rga_store._ReadGraphs()
+    graphs = rga_store._read_graphs()
     monkeypatch.setattr(rga_store, "_READ_GRAPHS", graphs)
     return graphs
 
@@ -700,10 +702,10 @@ def test_rga_graph_read_cache_cannot_thrash(cuda_device, rga_graphs,
     """Six shapes read in turn, four rounds, with room for four graphs:
     four captures in all, the two other shapes read eagerly, every read
     equal to the eager body's, and none waits for the card.  A graph
-    gone more than ``GRAPH_IDLE_READS`` reads unused then gives its
-    place to a shape read again and again."""
-    monkeypatch.setattr(rga_store, "GRAPH_IDLE_READS", 8)
-    assert rga_store.GRAPHS_PER_DEVICE == 4
+    gone more than its idle limit of reads (8 here) unused then gives
+    its place to a shape read again and again."""
+    rga_graphs.idle = 8
+    assert rga_graphs.cap == rga_store.GRAPHS_PER_DEVICE == 4
     a, hi = _rga_doc(cuda_device, seed=2, n_blocks=4)
     grow = rga_store.rga_grow
     shapes = [a, grow(a, pb=2 * a.pb), grow(a, pb=4 * a.pb),
@@ -731,6 +733,118 @@ def test_rga_graph_read_cache_cannot_thrash(cuda_device, rga_graphs,
         (st.pb, st.nw, st.md) for st in shapes[1:5]}
     for st, g in got:
         _rga_equal(g, rga_store._read_eager(st, rv))
+
+
+@pytest.fixture
+def fold_graphs(monkeypatch):
+    """A fresh cache of the fold's CUDA graphs, so the first fold of a
+    shape here captures."""
+    graphs = rga_store._fold_graphs()
+    monkeypatch.setattr(rga_store, "_FOLD_GRAPHS", graphs)
+    return graphs
+
+
+def _fold_graph_events():
+    c = rga_store.fold_graph_events
+    return tuple(c.value(event=e) for e in ("capture", "replay", "eager"))
+
+
+def _rga_to(st, device):
+    return replace(st, **{f: getattr(st, f).to(device)
+                          for f in rga_store._STATE_FIELDS})
+
+
+def _horizon(t, d, device):
+    return torch.tensor([t] + [0] * (d - 1), dtype=torch.int64,
+                        device=device)
+
+
+def _same_state(got, *wants):
+    """Every field of the state ``got`` and bn equal each of ``wants``
+    (states, or the eager body's tuples) bit for bit, dtypes too."""
+    for want in wants:
+        if isinstance(want, tuple):
+            want = dict(zip(rga_store._STATE_FIELDS, want))
+        else:
+            want = {f: getattr(want, f) for f in rga_store._STATE_FIELDS}
+        for f in rga_store._STATE_FIELDS:
+            a, b = getattr(got, f).cpu(), want[f].cpu()
+            assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
+#: the folds' shapes (PB, NW, MD, D): the text cell's, and a small one
+RGA_FOLD_SHAPES = {"text-cell": (2**18, 16384, 8192, 3),
+                   "small": (1024, 512, 256, 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(RGA_FOLD_SHAPES))
+def test_rga_graph_fold_equals_eager(cuda_device, fold_graphs, shape):
+    """The fold replayed as a CUDA graph equals its eager body on the
+    card and the CPU's fold, on every field and bn, bit for bit: a
+    shape's first fold captures and later ones replay; two documents
+    folded in a row through the one graph each get their own fold, the
+    first kept intact after the second replay (no stale input, no
+    overwritten output); ``rga_remap_actors``' zero-horizon fold
+    replays the same graph and equals the CPU's remap.  No fold here
+    waits for the card."""
+    pb, nw, md, d = RGA_FOLD_SHAPES[shape]
+    cpu = torch.device("cpu")
+    docs = [_rga_doc(cpu, seed=s, n_blocks=n, pb=pb, nw=nw, md=md, d=d)
+            for s, n in ((2, 5), (3, 7))]
+    (a_cpu, hi), (b_cpu, hi_b) = docs
+    a, b = _rga_to(a_cpu, cuda_device), _rga_to(b_cpu, cuda_device)
+    ga, gb = _horizon(hi - 40, d, cuda_device), _horizon(hi_b - 40, d,
+                                                         cuda_device)
+    want_a = rga_store._fold_eager(a, ga)
+    want_b = rga_store._fold_eager(b, gb)
+    c0, r0, e0 = _fold_graph_events()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_a, n_a = rga_store.rga_fold(a, ga)
+        kept = _rga_clone(got_a)
+        got_b, n_b = rga_store.rga_fold(b, gb)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _fold_graph_events() == (c0 + 1, r0 + 1, e0)
+    assert n_a is got_a.bn and n_b is got_b.bn
+    assert not torch.equal(got_a.buid, got_b.buid)
+    _same_state(got_a, kept, want_a,
+                rga_store.rga_fold(a_cpu, ga.cpu())[0])
+    _same_state(got_b, want_b, rga_store.rga_fold(b_cpu, gb.cpu())[0])
+    perm = np.arange(1 << a.actor_bits, dtype=np.int32)
+    perm[1:5] = [4, 2, 1, 3]
+    got = rga_store.rga_remap_actors(got_a, perm)
+    assert _fold_graph_events() == (c0 + 1, r0 + 2, e0)
+    _same_state(got, rga_store.rga_remap_actors(_rga_to(kept, cpu), perm))
+    assert len(fold_graphs._graphs) == 1
+
+
+@pytest.mark.cuda
+def test_rga_graph_fold_after_a_grow(cuda_device, fold_graphs):
+    """``rga_fold_host`` grows a document whose base and window outgrow
+    PB, then folds it at the grown shape: a capture there, equal to the
+    eager body over the grown state and to the CPU's ``rga_fold_host``;
+    the next fold of that shape replays, equal too."""
+    _tr, blocks = _rga_blocks(seed=4)
+    cpu = torch.device("cpu")
+    st = rga_store.rga_store_init(64, 512, 256, device=cpu)
+    for ins, dl, hi in blocks[:3]:
+        st, ok = rga_store.rga_append_coalesced(st, ins, dl)
+        assert bool(ok)
+    assert int(st.wn) > st.pb
+    card = _rga_to(st, cuda_device)
+    c0, r0, e0 = _fold_graph_events()
+    got = rga_store.rga_fold_host(card, hi - 96)
+    assert got.pb > st.pb and _fold_graph_events() == (c0 + 1, r0, e0)
+    grown = rga_store.rga_grow(card, pb=got.pb)
+    _same_state(got, rga_store._fold_eager(
+        grown, _horizon(hi - 96, 1, cuda_device)),
+        rga_store.rga_fold_host(st, hi - 96))
+    again = rga_store.rga_fold_host(got, hi - 10)
+    assert _fold_graph_events() == (c0 + 1, r0 + 1, e0)
+    _same_state(again, rga_store.rga_fold_host(_rga_to(got, cpu), hi - 10))
 
 
 PLANE_TYPES = ["counter_pn", "set_aw", "register_mv", "register_lww",

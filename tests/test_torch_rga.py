@@ -413,35 +413,50 @@ def test_grouped_copy_copies_every_pair():
         assert d.dtype == dtype and torch.equal(d, s_.to(dtype))
 
 
-def test_read_graph_cache_cannot_thrash(monkeypatch):
-    """The card's cache of read graphs, its policy alone (the capture,
-    the replay and the eager body stood in for): six shapes read in
-    turn with room for four keep four graphs and read the two others
-    eagerly; a graph gone more than ``GRAPH_IDLE_READS`` reads unused
-    gives its place to a new shape; each device has its own room; a
-    failed capture leaves no graph behind."""
+def _graph_doc(pb, dev=0, nw=64):
+    """A stand-in state: the device and the shape the caches key on."""
+    from types import SimpleNamespace as NS
+
+    return NS(wn=NS(device=torch.device("cuda", dev)), pb=pb, nw=nw, md=32,
+              d=3, actor_bits=2)
+
+
+def _stand_in_graphs(monkeypatch, cache):
+    """``cache`` with its capture, replay and eager body stood in for:
+    a call returns "graph" or "eager"; ``calls(docs)`` gives the results
+    of calling it on ``docs`` and the counter's capture, replay and
+    eager events over them."""
     from types import SimpleNamespace as NS
 
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev: NS(cuda_stream=7))
-    monkeypatch.setattr(trs._ReadGraph, "capture",
-                        lambda g, st, rv, stream: setattr(g, "graph", 1))
-    monkeypatch.setattr(trs._ReadGraph, "run", lambda g, st, rv: "graph")
-    monkeypatch.setattr(trs, "_read_eager", lambda st, rv: "eager")
-    monkeypatch.setattr(trs, "GRAPH_IDLE_READS", 8)
-    assert trs.GRAPHS_PER_DEVICE == 4
-    cache = trs._ReadGraphs()
+    monkeypatch.setattr(trs._Graph, "capture",
+                        lambda g, st, vc, stream: setattr(g, "graph", 1))
+    monkeypatch.setattr(trs._Graph, "run", lambda g, st, vc: "graph")
+    monkeypatch.setattr(cache, "body", lambda st, vc: "eager")
+    events = ("capture", "replay", "eager")
 
-    def doc(pb, dev=0):
-        return NS(wn=NS(device=torch.device("cuda", dev)), pb=pb, nw=64,
-                  md=32, d=3, actor_bits=2)
+    def calls(docs):
+        c = cache.events
+        before = [c.value(event=e) for e in events]
+        out = [cache.call(st, None) for st in docs]
+        return out, [c.value(event=e) - b for e, b in zip(events, before)]
+    return calls
 
-    def reads(docs):
-        c = trs.read_graph_events
-        before = [c.value(event=e) for e in ("capture", "replay", "eager")]
-        out = [cache.read(st, None) for st in docs]
-        return out, [c.value(event=e) - b for e, b in
-                     zip(("capture", "replay", "eager"), before)]
+
+def test_read_graph_cache_cannot_thrash(monkeypatch):
+    """The card's cache of read graphs, its policy alone (the capture,
+    the replay and the eager body stood in for): six shapes read in
+    turn with room for four keep four graphs and read the two others
+    eagerly; a graph gone more than its idle limit of reads unused
+    gives its place to a new shape; each device has its own room; a
+    failed capture leaves no graph behind."""
+    cache = trs._read_graphs()
+    assert (cache.cap, cache.idle) == (4, trs.GRAPH_IDLE_READS) == (4, 512)
+    assert cache.events is trs.read_graph_events
+    cache.idle = 8
+    reads = _stand_in_graphs(monkeypatch, cache)
+    doc = _graph_doc
 
     shapes = [doc(2 ** i) for i in range(6)]
     out, ev = reads(4 * shapes)
@@ -456,10 +471,87 @@ def test_read_graph_cache_cannot_thrash(monkeypatch):
     def fail(g, st, rv, stream):
         raise RuntimeError("capture")
 
-    monkeypatch.setattr(trs._ReadGraph, "capture", fail)
+    monkeypatch.setattr(trs._Graph, "capture", fail)
     with pytest.raises(RuntimeError, match="capture"):
-        cache.read(doc(3, dev=2), None)
+        cache.call(doc(3, dev=2), None)
     assert not [k for k in cache._graphs if k[0] == 2]
+
+
+def test_fold_graph_cache_holds_a_partitions_shapes(monkeypatch):
+    """The card's cache of fold graphs, its policy alone: room for
+    eight a device, so the seven shapes of a partition folded in turn
+    each keep their graph and replay; an eighth shape takes the last
+    place and a ninth folds eagerly while every graph has been used
+    within the idle limit; a failed capture drops its entry and
+    re-raises, and its shape captures again at its next fold.  The
+    read's cache keeps its room of four."""
+    cache = trs._fold_graphs()
+    assert (cache.cap, cache.idle) == (8, trs.GRAPH_IDLE_FOLDS) == (8, 512)
+    assert cache.events is trs.fold_graph_events
+    assert cache.body is trs._fold_eager
+    assert trs._READ_GRAPHS.cap == trs.GRAPHS_PER_DEVICE == 4
+    assert trs._FOLD_GRAPHS.cap == trs.FOLD_GRAPHS_PER_DEVICE == 8
+    folds = _stand_in_graphs(monkeypatch, cache)
+    # the partition's seven tiers: PB and NW halving from (2**18, 2**18)
+    tiers = [_graph_doc(2 ** (18 - i), nw=2 ** (18 - i)) for i in range(7)]
+    out, ev = folds(tiers)
+    assert out == 7 * ["graph"] and ev == [7, 0, 0]
+    out, ev = folds(5 * tiers)
+    assert out == 35 * ["graph"] and ev == [0, 35, 0]
+    assert len(cache._graphs) == 7
+    out, ev = folds([_graph_doc(3), _graph_doc(5)])
+    assert out == ["graph", "eager"] and ev == [1, 0, 1]
+    assert len(cache._graphs) == 8
+    assert {k[2] for k in cache._graphs} >= {st.pb for st in tiers}
+
+    def fail(g, st, vc, stream):
+        raise RuntimeError("capture")
+
+    monkeypatch.setattr(trs._Graph, "capture", fail)
+    with pytest.raises(RuntimeError, match="capture"):
+        cache.call(_graph_doc(7, dev=1), None)
+    assert not [k for k in cache._graphs if k[0] == 1]
+    monkeypatch.setattr(trs._Graph, "capture",
+                        lambda g, st, vc, stream: setattr(g, "graph", 1))
+    out, ev = folds([_graph_doc(7, dev=1)])
+    assert out == ["graph"] and ev == [1, 0, 0]
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_cpu_fold_runs_the_eager_body(seed):
+    """On the CPU ``rga_fold`` runs its eager body and never touches a
+    graph cache: the fold counter does not move and no graph is kept
+    through ``rga_fold_host`` after a grow, ``rga_fold`` and
+    ``rga_remap_actors``' zero-horizon fold; on a seeded document every
+    field of the folded state equals the eager body's, bn included."""
+    jst, _tr = _jax_doc(seed=seed, pb=16, nw=256, fold_at=10)
+    tst = to_port(jst)
+    counter = trs.fold_graph_events
+    events = ("capture", "replay", "eager")
+    before = [counter.value(event=e) for e in events]
+    graphs = dict(trs._FOLD_GRAPHS._graphs)
+
+    def same_as_eager(got, st, gst):
+        want = trs._fold_eager(st, _t(gst))
+        assert len(want) == len(trs._STATE_FIELDS)
+        for f, b in zip(trs._STATE_FIELDS, want):
+            a = getattr(got, f)
+            assert a.dtype == b.dtype and torch.equal(a, b), f
+
+    assert int(tst.bn) + int(tst.wn) > tst.pb
+    gst = np.array([120], np.int64)
+    got = trs.rga_fold_host(tst, gst)
+    assert got.pb > tst.pb
+    same_as_eager(got, trs.rga_grow(tst, pb=got.pb), gst)
+    gst = np.array([150], np.int64)
+    again, n = trs.rga_fold(got, _t(gst))
+    same_as_eager(again, got, gst)
+    assert n is again.bn and int(n) > 0
+    perm = np.arange(1 << tst.actor_bits, dtype=np.int32)
+    perm[1:5] = [4, 2, 1, 3]
+    trs.rga_remap_actors(again, perm)
+    assert [counter.value(event=e) for e in events] == before
+    assert trs._FOLD_GRAPHS._graphs == graphs
 
 
 # -- the append's paths -------------------------------------------------
